@@ -13,12 +13,7 @@ import sys as _sys
 _sys.path.insert(0, _os.path.dirname(_os.path.dirname(_os.path.abspath(__file__))))
 
 import argparse
-import os
 import sys
-
-if os.environ.get("JAX_PLATFORMS", "").strip() == "cpu":
-    import jax
-    jax.config.update("jax_platforms", "cpu")
 
 import jax
 import numpy as np

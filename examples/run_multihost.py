@@ -1,13 +1,14 @@
 """Multi-host domain-decomposed ocean run (see docs/multihost.md).
 
-Run the SAME script on every host of a pod slice:
+Run the SAME script on every host, naming the coordinator and each rank:
 
-    python examples/run_multihost.py --res 4096 --steps 600
+    python examples/run_multihost.py --res 4096 --steps 600 \
+        --coordinator host0:12345 --num-processes 2 --process-id $RANK
 
-Single-process fallback: with no pod environment it runs on whatever local
-devices exist (e.g. the 8 fake CPU devices under
-XLA_FLAGS=--xla_force_host_platform_device_count=8), which is also how CI
-exercises it.
+Single process (no --coordinator): it runs on whatever local devices exist
+(the cards of one host, or the 8 fake CPU devices under
+XLA_FLAGS=--xla_force_host_platform_device_count=8, which is how CI
+exercises it).
 """
 
 
@@ -18,12 +19,7 @@ import sys as _sys
 _sys.path.insert(0, _os.path.dirname(_os.path.dirname(_os.path.abspath(__file__))))
 
 import argparse
-import os
 import sys
-
-if os.environ.get("JAX_PLATFORMS", "").strip() == "cpu":
-    import jax
-    jax.config.update("jax_platforms", "cpu")
 
 import jax
 
@@ -38,16 +34,21 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--res", type=int, default=4096)
     ap.add_argument("--steps", type=int, default=120)
-    ap.add_argument("--backend", type=str, default="matmul")
+    ap.add_argument("--backend", type=str, default="reference")
     ap.add_argument("--overlap-chunks", type=int, default=1)
     ap.add_argument("--production", action="store_true",
-                    help="the measured-fastest sharded switch set: pallas "
-                         "plane pipeline + real_state + Hermitian packing + "
+                    help="the shipping sharded switch set (solver."
+                         "PRODUCTION): real_state + Hermitian packing + "
                          "mirror-balanced half-spectrum C2R (the a2a moves "
                          "1.5 channel-equivalents — bench/scaling_model.md)")
+    ap.add_argument("--coordinator", type=str, default=None,
+                    help="host:port of process 0 (multi-host runs)")
+    ap.add_argument("--num-processes", type=int, default=None)
+    ap.add_argument("--process-id", type=int, default=None)
     args = ap.parse_args()
 
-    initialize_distributed()
+    initialize_distributed(args.coordinator, args.num_processes,
+                           args.process_id)
     mesh = make_mesh()
     n_dev = mesh.devices.size
     is_lead = jax.process_index() == 0
@@ -64,12 +65,9 @@ def main():
         oracle_sign_quirk=False)
     kw = {}
     if args.production:
-        args.backend = "pallas"
-        n_shard = mesh.shape["shard"]
-        kw = dict(real_state=True, pack_channels=True, pallas_fields=True,
-                  half_spectrum=(n_shard == 1 or n_shard % 2 == 0)
-                  and (args.res // (2 * max(n_shard, 1))) % 8 == 0
-                  and args.res % 16 == 0)
+        from tpu_ocean.solver import PRODUCTION
+        args.backend = "reference"
+        kw = dict(PRODUCTION)
     solver = DistributedOceanSolver(cfg, mesh, fft_backend=args.backend,
                                     overlap_chunks=args.overlap_chunks, **kw)
     state = solver.init(jax.random.PRNGKey(0))

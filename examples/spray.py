@@ -18,12 +18,7 @@ import sys as _sys
 _sys.path.insert(0, _os.path.dirname(_os.path.dirname(_os.path.abspath(__file__))))
 
 import argparse
-import os
 import sys
-
-if os.environ.get("JAX_PLATFORMS", "").strip() == "cpu":
-    import jax
-    jax.config.update("jax_platforms", "cpu")
 
 import jax
 import numpy as np
@@ -94,14 +89,12 @@ def main():
         print(f"# airborne {len(parts):5d}  (+{spawned} total spawned)",
               file=sys.stderr)
 
-    from PIL import Image
     from tpu_ocean import viz
     rgb = (viz.shade_ocean(fields) * 255).astype(np.uint8)
     if len(parts):
         ij = (parts[:, :2] * args.n / cfg.length).astype(int) % args.n
         rgb[ij[:, 0], ij[:, 1]] = (255, 255, 255)       # spray dots
-    os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
-    Image.fromarray(rgb).save(args.out)
+    viz.write_png(args.out, rgb)
     print(f"spawned {spawned} spray particles over {args.steps} frames; "
           f"{len(parts)} airborne at the end; wrote {args.out}")
     return 0 if spawned > 0 else 1
@@ -148,14 +141,12 @@ def pond_main(args):
         print(f"# airborne {len(parts):5d}  (+{spawned} total spawned)",
               file=sys.stderr)
 
-    from PIL import Image
     from tpu_ocean import viz
     rgb = (viz.shade_pond(fields) * 255).astype(np.uint8)
     if len(parts):
         ij = (parts[:, :2] / texel).astype(int) % args.n
         rgb[ij[:, 0], ij[:, 1]] = (255, 255, 255)
-    os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
-    Image.fromarray(rgb).save(args.out)
+    viz.write_png(args.out, rgb)
     print(f"spawned {spawned} pond spray particles over {args.steps} frames; "
           f"{len(parts)} airborne at the end; wrote {args.out} "
           f"(grid spans {length:.0f} m)")

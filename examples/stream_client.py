@@ -3,7 +3,7 @@
 Launches `python -m tpu_ocean serve` in-process (or connects to --host/--port
 if given), reads K frames, prints per-frame stats, and writes a shaded PNG of
 the last frame — a stand-in for the remote render client a production
-deployment pairs with the TPU solver host.
+deployment pairs with the GPU solver host.
 
     python examples/stream_client.py --frames 10 --out out/stream.png
     python examples/stream_client.py --host 10.0.0.2 --port 7777
@@ -20,10 +20,6 @@ import argparse
 import os
 import sys
 import threading
-
-if os.environ.get("JAX_PLATFORMS", "").strip() == "cpu":
-    import jax
-    jax.config.update("jax_platforms", "cpu")
 
 
 def main():

@@ -2,7 +2,7 @@
 //
 // The reference binds solver textures straight to the renderer
 // (OceanRenderer.cs:308-315); our consumers are files. Writing 40+ MB
-// snapshots synchronously would stall the TPU step loop, so submissions are
+// snapshots synchronously would stall the device step loop, so submissions are
 // copied into a bounded ring and flushed to .npy files from a background
 // thread — the host stays off the critical path the same way the reference's
 // GPU pipeline never waits for the screen.

@@ -1,6 +1,6 @@
 // Native consumer of the tpu-ocean/1 frame stream (tpu_ocean/serve.py).
 //
-// A production deployment pairs the TPU solver host with render/physics
+// A production deployment pairs the GPU solver host with render/physics
 // clients that are NOT Python — this is that client, dependency-free C++:
 // connect, parse the one-line JSON header (only the four fixed keys the
 // protocol guarantees), then read raw little-endian f32 planes and report

@@ -104,7 +104,7 @@ def test_orbax_sharded_like_restore_both_representations(tmp_path):
                       amplitude=0.5, spectrum_layout="fft",
                       normals_mode="stencil")
     mesh = make_mesh(shard=8)
-    real = DistributedOceanSolver(cfg, mesh, fft_backend="pallas",
+    real = DistributedOceanSolver(cfg, mesh,
                                   real_state=True)
     st = real.init(jax.random.PRNGKey(3))
     for _ in range(2):
@@ -126,7 +126,7 @@ def test_orbax_sharded_like_restore_both_representations(tmp_path):
 
     # cross-representation: a COMPLEX distributed solver restores the same
     # snapshot as its own view, shard-layout intact
-    cplx = DistributedOceanSolver(cfg, mesh, fft_backend="pallas")
+    cplx = DistributedOceanSolver(cfg, mesh)
     cview = load_checkpoint_orbax(d, like=cplx.init(jax.random.PRNGKey(0)))
     np.testing.assert_array_equal(np.asarray(jax.numpy.real(cview.h0)),
                                   np.asarray(st.h0_re))
@@ -214,9 +214,9 @@ def test_lod_checkpoint_roundtrip_resumes_bitwise(tmp_path):
 
 
 def test_real_state_simulation_checkpoint_resume(tmp_path):
-    """real_state runs checkpoint and resume COMPLEX-FREE (the wire format
-    is (re, im) plane pairs either way), and the resumed trajectory
-    continues bitwise — the production-TPU mode's lifecycle works."""
+    """real_state checkpoints and resumes through (re, im) plane pairs (the
+    wire format either way), and the resumed trajectory continues bitwise —
+    the production mode's lifecycle works."""
     import jax
     from tpu_ocean.runtime import Simulation
 
@@ -224,7 +224,7 @@ def test_real_state_simulation_checkpoint_resume(tmp_path):
                       amplitude=0.4, evolution_mode="phase",
                       dispersion_mode="capillary", spectrum_layout="fft",
                       normals_mode="stencil")
-    kw = dict(fft_backend="pallas", real_state=True, pack_channels=True)
+    kw = dict(real_state=True, pack_channels=True)
     out = str(tmp_path / "run")
 
     sim1 = Simulation(cfg, out_dir=out, checkpoint_every=2, **kw)
@@ -258,7 +258,7 @@ def test_checkpoint_cross_representation_round_trip(tmp_path):
                       dispersion_mode="capillary", spectrum_layout="fft",
                       normals_mode="stencil")
     import jax
-    real = OceanSolver(cfg, fft_backend="pallas", real_state=True)
+    real = OceanSolver(cfg, real_state=True)
     sr = real.init(jax.random.PRNGKey(6))
     p = str(tmp_path / "real_ckpt")
     save_checkpoint(p, sr, cfg)
@@ -287,7 +287,7 @@ def test_orbax_sharded_like_restore_pre_foam_checkpoint(tmp_path):
                       amplitude=0.5, spectrum_layout="fft",
                       normals_mode="stencil")
     mesh = make_mesh(shard=4)
-    solver = DistributedOceanSolver(cfg, mesh, fft_backend="pallas",
+    solver = DistributedOceanSolver(cfg, mesh,
                                     real_state=True)
     state = solver.init(jax.random.PRNGKey(5))
     # simulate the OLD wire format: the saved tree has no foam_accum

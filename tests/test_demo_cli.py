@@ -200,9 +200,55 @@ def test_serve_cli_runs_headless(tmp_path, capsys):
 
 
 def test_serve_cli_real_state_packed(tmp_path, capsys):
-    """--real-state --pack-channels: the CLI serves the TPU production
-    shape (all-f32 state, plane backends forced)."""
+    """--real-state --pack-channels --half-spectrum: the CLI serves the
+    production shape (all-f32 state, packed, C2R last channel)."""
     rc = main(["serve", "--res", "32", "--steps", "2", "--real-state",
-               "--pack-channels", "--out", str(tmp_path)])
+               "--pack-channels", "--half-spectrum", "--out", str(tmp_path)])
     assert rc == 0
     assert "serving 32^2" in capsys.readouterr().err
+
+
+def test_ocean_demo_cli_production(tmp_path):
+    """`ocean --production`: the shipping switch set on jnp.fft, writing
+    PNG files that carry the PNG signature and decode to the field size."""
+    import struct
+    import zlib
+    rc = main(["ocean", "--production", "--res", "32", "--steps", "2",
+               "--out", str(tmp_path)])
+    assert rc == 0
+    with open(tmp_path / "ocean_render.png", "rb") as f:
+        data = f.read()
+    assert data[:8] == b"\x89PNG\r\n\x1a\n"
+    w, h = struct.unpack(">II", data[16:24])
+    assert (w, h) == (32, 32)
+    # IDAT inflates to h rows of (filter byte + 3·w RGB bytes)
+    start = data.index(b"IDAT") + 4
+    length = struct.unpack(">I", data[start - 8:start - 4])[0]
+    raw = zlib.decompress(data[start:start + length])
+    assert len(raw) == h * (1 + 3 * w)
+
+
+def test_write_png_and_colormap():
+    """viz.write_png / colormap: grey and RGB images round-trip through
+    zlib, and the colour map spans viridis' dark-purple → yellow ends."""
+    import zlib
+    import numpy as np
+    import tempfile, os
+    c = viz.colormap(np.asarray([0.0, 1.0]))
+    assert c.shape == (2, 3) and c.dtype == np.uint8
+    assert c[0, 2] > c[0, 1] and c[1, 0] > 200 and c[1, 1] > 200
+    with tempfile.TemporaryDirectory() as d:
+        for img in (np.arange(12, dtype=np.uint8).reshape(3, 4),
+                    np.zeros((2, 5, 3), np.uint8)):
+            p = viz.write_png(os.path.join(d, "t.png"), img)
+            data = open(p, "rb").read()
+            start = data.index(b"IDAT") + 4
+            n = int.from_bytes(data[start - 8:start - 4], "big")
+            raw = zlib.decompress(data[start:start + n])
+            rows = np.frombuffer(raw, np.uint8).reshape(img.shape[0], -1)
+            assert (rows[:, 0] == 0).all()
+            np.testing.assert_array_equal(rows[:, 1:].reshape(img.shape),
+                                          img)
+    import pytest
+    with pytest.raises(ValueError, match="write_png"):
+        viz.write_png("unused.png", np.zeros((2, 2, 4), np.uint8))

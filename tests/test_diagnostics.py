@@ -158,14 +158,14 @@ def test_stage_breakdown_real_state():
     cfg = OceanConfig(resolution=64, length=64.0, wind=(7.0, 4.0),
                       amplitude=0.2, spectrum_layout="fft",
                       normals_mode="stencil", evolution_mode="phase")
-    s = OceanSolver(cfg, fft_backend="pallas", real_state=True)
+    s = OceanSolver(cfg, real_state=True)
     st = s.init(jax.random.PRNGKey(0))
     import pytest
     bd = stage_breakdown(s, st, ks=(4, 8, 16))
     assert bd["full_ms"] > 0 and bd["transform_ms"] > 0
     assert bd["full_ms"] >= bd["dispersion_ms"] * 0.5  # gross sanity
     # complex-state solvers are rejected with a clear message
-    sc = OceanSolver(cfg, fft_backend="pallas")
+    sc = OceanSolver(cfg)
     stc = sc.init(jax.random.PRNGKey(0))
     with pytest.raises(ValueError, match="real"):
         stage_breakdown(sc, stc)

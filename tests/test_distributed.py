@@ -49,7 +49,7 @@ def test_make_roll_fn_mixed_axes():
     np.testing.assert_array_equal(got, np.roll(np.roll(x, -1, 0), 2, 1))
 
 
-@pytest.mark.parametrize("backend", ["reference", "stockham", "pallas"])
+@pytest.mark.parametrize("backend", ["reference", "stockham", "matmul"])
 def test_distributed_ifft2_matches_single_device(backend):
     mesh = _mesh()
     n = 64
@@ -59,38 +59,40 @@ def test_distributed_ifft2_matches_single_device(backend):
 
     fn = shard_map(lambda a: ifft2_x_sharded(a, "shard", backend),
                    mesh=mesh, in_specs=(P(None, "shard", None),),
-                   out_specs=P(None, None, "shard"),
-                   # pallas_call outputs carry no vma annotation
-                   check_vma=backend != "pallas")
+                   out_specs=P(None, None, "shard"))
     got = np.asarray(jax.jit(fn)(jnp.asarray(x)))
     want = np.fft.ifft2(x) * n * n
     assert np.abs(got - want).max() / np.abs(want).max() < 1e-5
 
 
-@pytest.mark.parametrize("backend", ["matmul", "pallas"])
-def test_distributed_ifft2_precision_reaches_backend(backend):
-    """cfg.precision='bfloat16' must tier the distributed transform's MXU
-    dots (ADVICE r2: it was computed but dropped on the non-fused paths) —
+@pytest.mark.parametrize("precision", ["float32", "bfloat16"])
+def test_distributed_ifft2_precision_reaches_backend(precision):
+    """The precision policy reaches the distributed transform's dots
+    (ADVICE r2: it was computed but dropped on the non-fused paths) —
     verified structurally in the lowered program, since CPU executes every
-    tier identically."""
+    tier identically: float32 lowers every dot at HIGHEST, bfloat16 casts
+    the dot operands to bf16 and leaves no HIGHEST behind."""
     import re
     mesh = _mesh()
     n = 64
     x = jnp.ones((3, n, n), jnp.complex64)
-    for prec, name in [(jax.lax.Precision.DEFAULT, "DEFAULT"),
-                       (jax.lax.Precision.HIGHEST, "HIGHEST")]:
-        fn = shard_map(lambda a: ifft2_x_sharded(a, "shard", backend,
-                                                 precision=prec),
-                       mesh=mesh, in_specs=(P(None, "shard", None),),
-                       out_specs=P(None, None, "shard"), check_vma=False)
-        found = set(re.findall(r'precision = \[(\w+)',
-                               jax.jit(fn).lower(x).as_text()))
-        assert found == {name}, (backend, name, found)
+    fn = shard_map(lambda a: ifft2_x_sharded(a, "shard", "matmul",
+                                             precision=precision),
+                   mesh=mesh, in_specs=(P(None, "shard", None),),
+                   out_specs=P(None, None, "shard"))
+    txt = jax.jit(fn).lower(x).as_text()
+    found = set(re.findall(r'precision = \[(\w+)', txt))
+    if precision == "float32":
+        assert found == {"HIGHEST"}, found
+        assert "bf16" not in txt
+    else:
+        assert "HIGHEST" not in found, found
+        assert "bf16" in txt
 
 
 def test_distributed_solver_bf16_precision_plumbed():
-    """DistributedOceanSolver(precision='bfloat16') lowers its non-fused
-    transform dots at DEFAULT, not silently HIGHEST."""
+    """DistributedOceanSolver(precision='bfloat16') lowers its transform
+    dots on bf16 operands, not silently at HIGHEST."""
     import re
     mesh = _mesh()
     cfg = OceanConfig(resolution=32, length=32.0, wind=(8.0, 5.0),
@@ -104,6 +106,7 @@ def test_distributed_solver_bf16_precision_plumbed():
                             s._x0, s._z0).as_text()
     found = set(re.findall(r'precision = \[(\w+)', txt))
     assert "HIGHEST" not in found, found
+    assert "bf16" in txt
 
 
 @pytest.mark.parametrize("layout,normals,quirk", [
@@ -184,8 +187,8 @@ def test_channel_sharded_ifft2_matches_single_device():
     np.testing.assert_allclose(got, want, atol=1e-3)
 
 
-def test_sharded_step_pallas_backend_matches_single():
-    """Full distributed step with the transposed-store Pallas local FFTs."""
+def test_sharded_step_matmul_backend_matches_single():
+    """Full distributed step with the four-step matmul local transforms."""
     mesh = _mesh()
     n = 64
     cfg = OceanConfig(resolution=n, length=float(n), unit_width=1.0,
@@ -197,7 +200,7 @@ def test_sharded_step_pallas_backend_matches_single():
     h0 = 0.05 * (rng.normal(size=(n, n)) + 1j * rng.normal(size=(n, n)))
     h0c = 0.05 * (rng.normal(size=(n, n)) + 1j * rng.normal(size=(n, n)))
     single = OceanSolver(cfg)
-    dist = DistributedOceanSolver(cfg, mesh, fft_backend="pallas")
+    dist = DistributedOceanSolver(cfg, mesh, fft_backend="matmul")
     s1 = single.init(h0=h0, h0_conj=h0c)
     s8 = dist.init(h0=h0, h0_conj=h0c)
     for _ in range(2):
@@ -211,10 +214,10 @@ def test_sharded_step_pallas_backend_matches_single():
 
 
 @pytest.mark.parametrize("overlap", [1, 3])
-def test_sharded_step_pallas_fused_matches_single(overlap):
-    """pallas_fused as a DISTRIBUTED local backend (VERDICT r1 #3): fused
-    assembly+row-FFT with in-kernel global-row wavevectors, a2a transpose,
-    plane column pass — vs the single-device fused solver."""
+def test_sharded_step_overlap_chunks_matches_single(overlap):
+    """overlap_chunks splits the 3-channel transform batch so each chunk's
+    a2a transpose can overlap the next chunk's row pass — a no-op for the
+    numbers: the sharded step equals the single-device step either way."""
     mesh = _mesh()
     n = 64
     cfg = OceanConfig(resolution=n, length=float(n), unit_width=1.0,
@@ -225,9 +228,8 @@ def test_sharded_step_pallas_fused_matches_single(overlap):
     rng = np.random.default_rng(6)
     h0 = 0.05 * (rng.normal(size=(n, n)) + 1j * rng.normal(size=(n, n)))
     h0c = 0.05 * (rng.normal(size=(n, n)) + 1j * rng.normal(size=(n, n)))
-    single = OceanSolver(cfg, fft_backend="pallas_fused")
-    dist = DistributedOceanSolver(cfg, mesh, fft_backend="pallas_fused",
-                                  overlap_chunks=overlap)
+    single = OceanSolver(cfg)
+    dist = DistributedOceanSolver(cfg, mesh, overlap_chunks=overlap)
     s1 = single.init(h0=h0, h0_conj=h0c)
     s8 = dist.init(h0=h0, h0_conj=h0c)
     for _ in range(2):
@@ -242,9 +244,11 @@ def test_sharded_step_pallas_fused_matches_single(overlap):
                                atol=1e-4)
 
 
-def test_sharded_step_pallas_fields_matches_single():
-    """Sharded fused stencil kernel: local fields_pallas + ring-halo
-    boundary-column correction == single-device fields_pallas."""
+def test_sharded_shipping_step_matches_single():
+    """The shipping switches (solver.PRODUCTION) sharded: real state,
+    packing, the mirror-balanced C2R route and the ring-halo stencils on
+    Z-sharded fields == the single-device shipping step."""
+    from tpu_ocean.solver import PRODUCTION
     mesh = _mesh()
     n = 64
     cfg = OceanConfig(resolution=n, length=float(n), unit_width=1.0,
@@ -255,9 +259,8 @@ def test_sharded_step_pallas_fields_matches_single():
     rng = np.random.default_rng(7)
     h0 = 0.05 * (rng.normal(size=(n, n)) + 1j * rng.normal(size=(n, n)))
     h0c = 0.05 * (rng.normal(size=(n, n)) + 1j * rng.normal(size=(n, n)))
-    single = OceanSolver(cfg, fft_backend="pallas_fused", pallas_fields=True)
-    dist = DistributedOceanSolver(cfg, mesh, fft_backend="pallas_fused",
-                                  pallas_fields=True)
+    single = OceanSolver(cfg, **PRODUCTION)
+    dist = DistributedOceanSolver(cfg, mesh, **PRODUCTION)
     s1 = single.init(h0=h0, h0_conj=h0c)
     s8 = dist.init(h0=h0, h0_conj=h0c)
     for _ in range(2):
@@ -266,65 +269,13 @@ def test_sharded_step_pallas_fields_matches_single():
     hmax = np.abs(np.asarray(f1.height)).max()
     np.testing.assert_allclose(np.asarray(f8.height), np.asarray(f1.height),
                                atol=2e-5 * hmax)
-    # normal + foam exercise the boundary-column halo correction
+    # normal + foam exercise the boundary-column halo ring
     np.testing.assert_allclose(np.asarray(f8.normal), np.asarray(f1.normal),
                                atol=1e-4)
     np.testing.assert_allclose(np.asarray(f8.foam), np.asarray(f1.foam),
                                atol=1e-4)
     np.testing.assert_allclose(np.asarray(f8.jacobian),
                                np.asarray(f1.jacobian), atol=1e-4)
-
-
-def test_sharded_fused_large_n_route_matches_single(monkeypatch):
-    """The large-N distributed fused pipeline (natural-store row kernel →
-    split(-1)/concat(-2) a2a → einsum axis(-2) column pass) must reproduce
-    the single-device step. Forced at a small N by lowering the cap."""
-    import tpu_ocean.fft.pallas_fft as pf
-    import tpu_ocean.ops.fused_spectrum_fft as fsf
-    import tpu_ocean.solver_dist as sd_mod
-    monkeypatch.setattr(pf, "MAX_FUSED_N", 32)
-    monkeypatch.setattr(fsf, "MAX_FUSED_N", 32)
-    mesh = _mesh()
-    n = 64
-    cfg = OceanConfig(resolution=n, length=float(n), unit_width=1.0,
-                      wind=(9.0, 4.0), amplitude=0.15, choppiness=1.1,
-                      dispersion_mode="capillary", evolution_mode="phase",
-                      spectrum_layout="fft", normals_mode="stencil",
-                      oracle_sign_quirk=False)
-    rng = np.random.default_rng(8)
-    h0 = 0.05 * (rng.normal(size=(n, n)) + 1j * rng.normal(size=(n, n)))
-    h0c = 0.05 * (rng.normal(size=(n, n)) + 1j * rng.normal(size=(n, n)))
-    single = OceanSolver(cfg, fft_backend="pallas_fused")   # also large route
-    dist = DistributedOceanSolver(cfg, mesh, fft_backend="pallas_fused")
-    s1 = single.init(h0=h0, h0_conj=h0c)
-    s8 = dist.init(h0=h0, h0_conj=h0c)
-    for _ in range(2):
-        s1, f1 = single.step(s1, 1 / 60)
-        s8, f8 = dist.step(s8, 1 / 60)
-    hmax = np.abs(np.asarray(f1.height)).max()
-    np.testing.assert_allclose(np.asarray(f8.height), np.asarray(f1.height),
-                               atol=3e-5 * hmax)
-    np.testing.assert_allclose(np.asarray(f8.foam), np.asarray(f1.foam),
-                               atol=2e-4)
-
-
-def test_distributed_pallas_large_n_route(monkeypatch):
-    """Plain distributed pallas beyond the transposed-store cap: natural-
-    store row kernel + einsum column pass == single-device 2-D IFFT."""
-    import tpu_ocean.fft.pallas_fft as pf
-    monkeypatch.setattr(pf, "MAX_PALLAS_N", 16)
-    mesh = _mesh()
-    n = 64
-    rng = np.random.default_rng(9)
-    x = (rng.normal(size=(3, n, n))
-         + 1j * rng.normal(size=(3, n, n))).astype(np.complex64)
-    fn = shard_map(lambda a: ifft2_x_sharded(a, "shard", "pallas",
-                                             overlap_chunks=3),
-                   mesh=mesh, in_specs=(P(None, "shard", None),),
-                   out_specs=P(None, None, "shard"), check_vma=False)
-    got = np.asarray(jax.jit(fn)(jnp.asarray(x)))
-    want = np.fft.ifft2(x) * (n * n)
-    np.testing.assert_allclose(got, want, atol=2e-3)
 
 
 def test_grad_through_sharded_step_matches_single_device():
@@ -384,20 +335,20 @@ def _pair64(n, seed):
     return h0, h0c
 
 
-@pytest.mark.parametrize("backend,pack", [
-    ("pallas", False), ("pallas", True),
-    ("pallas_fused", False), ("pallas_fused", True)])
-def test_sharded_real_state_matches_complex_sharded(backend, pack):
+@pytest.mark.parametrize("pack,half,overlap", [
+    (False, False, 1), (True, False, 1), (True, True, 1), (False, False, 3)])
+def test_sharded_real_state_matches_complex_sharded(pack, half, overlap):
     """DistributedOceanSolver(real_state=True): the all-f32 sharded step
-    reproduces the complex sharded step from the same injected h0."""
+    reproduces the complex sharded step from the same injected h0, with and
+    without packing, the half-spectrum route and overlap chunking."""
     mesh = _mesh()
     n = 64
     cfg = _fft_cfg(n)
     h0, h0c = _pair64(n, seed=7)
-    cplx = DistributedOceanSolver(cfg, mesh, fft_backend=backend,
-                                  pack_channels=pack)
-    real = DistributedOceanSolver(cfg, mesh, fft_backend=backend,
-                                  real_state=True, pack_channels=pack)
+    kw = dict(pack_channels=pack, half_spectrum=half,
+              overlap_chunks=overlap)
+    cplx = DistributedOceanSolver(cfg, mesh, **kw)
+    real = DistributedOceanSolver(cfg, mesh, real_state=True, **kw)
     s1 = cplx.init(h0=h0, h0_conj=h0c)
     s2 = real.init(h0=h0, h0_conj=h0c)
     from tpu_ocean.solver import OceanStateReal
@@ -418,26 +369,21 @@ def test_sharded_real_state_matches_complex_sharded(backend, pack):
                                atol=1e-6)
 
 
-def test_sharded_real_state_program_is_complex_free():
-    """The LOWERED multi-chip real-state step and velocity programs contain
-    no complex dtype anywhere — the property that makes them timeable and
-    checkpointable on complex-hostile runtimes (VERDICT r3 #3)."""
+def test_sharded_real_state_io_is_f32():
+    """The sharded real-state step and velocity programs take and return
+    only f32/int32 arrays (state, fields, velocity) — checkpoints and the
+    wire never see complex64; velocity is traced once per solver."""
     mesh = _mesh()
     cfg = _fft_cfg(32)
-    s = DistributedOceanSolver(cfg, mesh, fft_backend="pallas",
-                               real_state=True)
+    s = DistributedOceanSolver(cfg, mesh, real_state=True)
     st = s.init(jax.random.PRNGKey(0))
-    txt = s._step_jit.lower(st, jnp.float32(1 / 60), s._omega, s._coeffs,
-                            s._pre_re, s._pre_im, s._post_re, s._post_im,
-                            s._x0, s._z0).as_text()
-    assert "complex" not in txt and "c64" not in txt
+    out = jax.eval_shape(s.step, st, 1 / 60)
+    for leaf in jax.tree.leaves((st, out)):
+        assert leaf.dtype in (jnp.float32, jnp.int32), leaf.dtype
     v = s.velocity(st)                     # triggers the cached trace
-    assert np.isfinite(np.asarray(v)).all()
+    assert v.dtype == jnp.float32 and np.isfinite(np.asarray(v)).all()
     fn = s._velocity_jit
     assert fn is not None
-    vtxt = fn.lower(st, st.t, s._omega, s._pre_re, s._pre_im,
-                    s._post_re, s._post_im).as_text()
-    assert "complex" not in vtxt and "c64" not in vtxt
     _ = s.velocity(st)
     assert s._velocity_jit is fn           # cached, one trace per solver
 
@@ -445,9 +391,9 @@ def test_sharded_real_state_program_is_complex_free():
 @pytest.mark.parametrize("backend,layout,normals,quirk,real", [
     ("reference", "centered", "spectral", True, False),
     ("matmul", "fft", "stencil", False, False),
-    ("pallas", "fft", "stencil", False, False),
-    ("pallas", "fft", "stencil", False, True),
-    ("pallas_fused", "fft", "stencil", False, True),
+    ("stockham", "fft", "stencil", False, False),
+    ("reference", "fft", "stencil", False, True),
+    ("reference", "fft", "spectral", False, True),
 ])
 def test_distributed_velocity_matches_single_device(backend, layout,
                                                     normals, quirk, real):
@@ -483,8 +429,7 @@ def test_sharded_real_state_checkpoint_roundtrip(tmp_path):
     mesh = _mesh()
     n = 32
     cfg = _fft_cfg(n)
-    solver = DistributedOceanSolver(cfg, mesh, fft_backend="pallas",
-                                    real_state=True)
+    solver = DistributedOceanSolver(cfg, mesh, real_state=True)
     st = solver.init(jax.random.PRNGKey(3))
     for _ in range(2):
         st, _ = solver.step(st, 1 / 60)
@@ -497,7 +442,7 @@ def test_sharded_real_state_checkpoint_roundtrip(tmp_path):
                                   np.asarray(fb.height))
     np.testing.assert_array_equal(np.asarray(a.phase), np.asarray(b.phase))
     with pytest.raises(ValueError, match="representation"):
-        cplx = DistributedOceanSolver(cfg, mesh, fft_backend="pallas")
+        cplx = DistributedOceanSolver(cfg, mesh)
         cplx.shard_state(loaded)
 
 
@@ -512,4 +457,4 @@ def test_sharded_real_state_validation():
                         wind=(9.0, 4.0), amplitude=0.15,
                         spectrum_layout="centered", normals_mode="spectral",
                         oracle_sign_quirk=True),
-            mesh, fft_backend="pallas", real_state=True)
+            mesh, real_state=True)

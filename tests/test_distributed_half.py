@@ -3,9 +3,8 @@
 
 Parity claims under test, on the fake 8-device CPU mesh:
   * transform level — on ANY exactly-Hermitian spectrum the sharded half
-    route equals the Re part of the full sharded transform, for every even
-    shard count and BOTH storage regimes (transposed-store / natural-store
-    + einsum column);
+    route equals the Re part of the full transform, for every even shard
+    count and grids that are not powers of two;
   * load balance is structural — every device row-transforms N/(2D) rows
     (lower devices directly, upper devices via the local conj/z-flip
     partner derivation), so there is no idle half to observe; what CAN be
@@ -29,8 +28,8 @@ import pytest
 from tpu_ocean.config import OceanConfig
 from tpu_ocean.solver import OceanSolver
 from tpu_ocean.solver_dist import DistributedOceanSolver
-from tests.test_packing import _cfg, _pair, _assert_fields_close
-from tests.test_half_spectrum import _hermitian_spectrum
+from test_packing import _cfg, _pair, _assert_fields_close
+from test_half_spectrum import _hermitian_spectrum
 
 
 def _mesh_d(d):
@@ -38,47 +37,42 @@ def _mesh_d(d):
     return Mesh(devs, axis_names=("batch", "shard"))
 
 
-def _sharded_half(re, im, mesh, cap=None):
+def _sharded_half(re, im, mesh):
     """Run ifft2_x_sharded_half under shard_map (X-sharded in, Z-sharded
-    out), optionally forcing the natural-store regime via the cap."""
-    from tpu_ocean.fft import distributed, pallas_fft
+    out)."""
+    from tpu_ocean.fft import distributed
 
     def local(r, i):
         return distributed.ifft2_x_sharded_half(r, i, "shard")
 
     fn = shard_map(local, mesh=mesh,
                    in_specs=(P(None, "shard", None), P(None, "shard", None)),
-                   out_specs=P(None, None, "shard"), check_vma=False)
-    if cap is None:
-        return np.asarray(fn(re, im))
-    with pallas_fft.transposed_store_cap(cap):
-        return np.asarray(fn(re, im))
+                   out_specs=P(None, None, "shard"))
+    return np.asarray(fn(re, im))
 
 
 @pytest.mark.parametrize("d", [2, 4, 8])
-@pytest.mark.parametrize("regime", ["transposed", "natural"])
-def test_sharded_half_matches_full_re(d, regime):
-    from tpu_ocean.fft.pallas_fft import ifft2_planes_auto
-    n = 128
+@pytest.mark.parametrize("n", [128, 384])
+def test_sharded_half_matches_full_re(d, n):
+    from tpu_ocean.fft.reference import ifft2_planes
     s = _hermitian_spectrum(n, c=1, seed=11)
     re = jnp.asarray(s.real, jnp.float32)
     im = jnp.asarray(s.imag, jnp.float32)
-    fr, _ = ifft2_planes_auto(re, im, True)
-    got = _sharded_half(re, im, _mesh_d(d),
-                        cap=None if regime == "transposed" else 32)
+    fr, _ = ifft2_planes(re, im)
+    got = _sharded_half(re, im, _mesh_d(d))
     scale = np.abs(np.asarray(fr)).max()
     np.testing.assert_allclose(got, np.asarray(fr), atol=3e-5 * scale)
 
 
 def test_sharded_half_d1_degenerate():
     """D == 1 reduces to the single-chip route exactly."""
-    from tpu_ocean.fft.pallas_fft import ifft2_planes_half
+    from tpu_ocean.fft.reference import ifft2_planes_half
     n = 64
     s = _hermitian_spectrum(n, c=1, seed=7)
     re = jnp.asarray(s.real, jnp.float32)
     im = jnp.asarray(s.imag, jnp.float32)
     want = np.asarray(ifft2_planes_half(re[:, :n // 2 + 1],
-                                        im[:, :n // 2 + 1], True))
+                                        im[:, :n // 2 + 1]))
     got = _sharded_half(re, im, _mesh_d(1))
     np.testing.assert_allclose(got, want, atol=1e-6 * np.abs(want).max())
 
@@ -91,7 +85,7 @@ def test_sharded_half_step_matches_nonhalf(normals):
     cfg = _cfg(n=n, normals=normals)
     h0, h0c = _pair(n)
     mesh = _mesh_d(8)
-    kw = dict(fft_backend="pallas", real_state=True, pack_channels=True)
+    kw = dict(real_state=True, pack_channels=True)
     ref = DistributedOceanSolver(cfg, mesh, **kw)
     got = DistributedOceanSolver(cfg, mesh, half_spectrum=True, **kw)
     s_ref = ref.init(h0=h0, h0_conj=h0c)
@@ -106,8 +100,7 @@ def test_sharded_half_step_matches_single_device():
     n = 128
     cfg = _cfg(n=n)
     h0, h0c = _pair(n)
-    kw = dict(fft_backend="pallas", real_state=True, pack_channels=True,
-              half_spectrum=True)
+    kw = dict(real_state=True, pack_channels=True, half_spectrum=True)
     single = OceanSolver(cfg, **kw)
     dist = DistributedOceanSolver(cfg, _mesh_d(8), **kw)
     s1 = single.init(h0=h0, h0_conj=h0c)
@@ -128,17 +121,15 @@ def test_sharded_half_validation():
     cfg = _cfg(n=64)
     mesh = _mesh_d(8)
     with pytest.raises(ValueError, match="pack_channels"):
-        DistributedOceanSolver(cfg, mesh, fft_backend="pallas",
-                               real_state=True, half_spectrum=True)
-    with pytest.raises(ValueError, match="real_state|pallas"):
-        DistributedOceanSolver(cfg, mesh, fft_backend="pallas_fused",
-                               real_state=True, pack_channels=True,
+        DistributedOceanSolver(cfg, mesh, real_state=True,
                                half_spectrum=True)
-    # N/(2D) = 4 rows per device: below the kernels' row-block floor
+    with pytest.raises(ValueError, match="reference"):
+        DistributedOceanSolver(cfg, mesh, fft_backend="matmul",
+                               pack_channels=True, half_spectrum=True)
+    # N/D = 5 rows per device: the mirror split needs an even local batch
     with pytest.raises(ValueError, match="mirror-balanced"):
-        DistributedOceanSolver(cfg, mesh, fft_backend="pallas",
-                               real_state=True, pack_channels=True,
-                               half_spectrum=True)
+        DistributedOceanSolver(_cfg(n=40), mesh, real_state=True,
+                               pack_channels=True, half_spectrum=True)
 
 
 def test_half_row_perm_is_bijection():
@@ -157,11 +148,10 @@ def test_ensemble_distributed_half_composition():
     devs = np.asarray(jax.devices()[:8]).reshape(2, 4)
     mesh = Mesh(devs, axis_names=("batch", "shard"))
     es = EnsembleDistributedSolver(cfg, mesh, ensemble_size=2,
-                                   fft_backend="pallas", real_state=True,
-                                   pack_channels=True, half_spectrum=True)
+                                   real_state=True, pack_channels=True,
+                                   half_spectrum=True)
     ref = EnsembleDistributedSolver(cfg, mesh, ensemble_size=2,
-                                    fft_backend="pallas", real_state=True,
-                                    pack_channels=True)
+                                    real_state=True, pack_channels=True)
     key = jax.random.PRNGKey(0)
     s_a, s_b = es.init(key), ref.init(key)
     s_a, f_a = es.step(s_a, 1 / 60)
@@ -181,7 +171,7 @@ def test_sharded_half_velocity_matches_nonhalf():
     cfg = _cfg(n=n)
     h0, h0c = _pair(n)
     mesh = _mesh_d(8)
-    kw = dict(fft_backend="pallas", real_state=True, pack_channels=True)
+    kw = dict(real_state=True, pack_channels=True)
     ref = DistributedOceanSolver(cfg, mesh, **kw)
     got = DistributedOceanSolver(cfg, mesh, half_spectrum=True, **kw)
     s_ref = ref.init(h0=h0, h0_conj=h0c)
@@ -236,27 +226,22 @@ def test_grad_through_sharded_half_adjoint_and_fd():
 
 
 @pytest.mark.parametrize("d", [2, 4])
-def test_sharded_half_radix2_column_regime(d):
-    """The 8192²-regime sharded half route: column length M = N/2 above
-    the (overridden) kernel cap with M % 256 == 0 routes through the
-    radix-2 DIT mirror (fft/distributed.py) — shard-exact against the
-    full single-device transform."""
-    from tpu_ocean.fft import pallas_fft
-    from tpu_ocean.fft.pallas_fft import ifft2_planes_auto
-    n = 512                      # mh = 256 > cap 128; 256 % 256 == 0
-    s = _hermitian_spectrum(n, c=1, seed=31)
-    re = jnp.asarray(s.real, jnp.float32)
-    im = jnp.asarray(s.imag, jnp.float32)
-    fr, _ = ifft2_planes_auto(re, im, True)
-    old_nat = pallas_fft.HALF_NAT_COLUMN_KERNEL
-    try:
-        pallas_fft.HALF_NAT_COLUMN_KERNEL = False   # close the direct door
-        assert pallas_fft.HALF_COLUMN_RADIX2        # shipping default
-        got = _sharded_half(re, im, _mesh_d(d), cap=128)
-    finally:
-        pallas_fft.HALF_NAT_COLUMN_KERNEL = old_nat
-    scale = np.abs(np.asarray(fr)).max()
-    np.testing.assert_allclose(got, np.asarray(fr), atol=3e-5 * scale)
+def test_sharded_half_complex_state_matches_real(d):
+    """The sharded half route on the complex OceanState (its last packed
+    channel split into planes for the C2R) == the real-state route, from
+    the same injected h0."""
+    n = 128
+    cfg = _cfg(n=n)
+    h0, h0c = _pair(n)
+    kw = dict(pack_channels=True, half_spectrum=True)
+    cplx = DistributedOceanSolver(cfg, _mesh_d(d), **kw)
+    real = DistributedOceanSolver(cfg, _mesh_d(d), real_state=True, **kw)
+    s_c = cplx.init(h0=h0, h0_conj=h0c)
+    s_r = real.init(h0=h0, h0_conj=h0c)
+    for _ in range(2):
+        s_c, f_c = cplx.step(s_c, 1 / 60)
+        s_r, f_r = real.step(s_r, 1 / 60)
+    _assert_fields_close(f_c, f_r, 5e-6)
 
 
 def test_dist_reconfigure_preserves_half_and_reuses_step():
@@ -269,14 +254,13 @@ def test_dist_reconfigure_preserves_half_and_reuses_step():
                       amplitude=0.1, evolution_mode="phase",
                       dispersion_mode="capillary", spectrum_layout="fft",
                       normals_mode="stencil")
-    solver = DistributedOceanSolver(cfg, _mesh_d(2), fft_backend="pallas",
-                                    real_state=True, pack_channels=True,
-                                    half_spectrum=True, pallas_fields=True)
+    solver = DistributedOceanSolver(cfg, _mesh_d(2), real_state=True,
+                                    pack_channels=True, half_spectrum=True)
     st = solver.init(jax.random.PRNGKey(0))
     st, _ = solver.step(st, 1 / 60)
     # init-only change: same compiled step object, all switches kept
     s2, st2 = solver.reconfigure(st, cfg.replace(wind=(2.0, 1.0)))
-    assert s2.half_spectrum and s2.pack_channels and s2.pallas_fields
+    assert s2.half_spectrum and s2.pack_channels and s2.real_state
     assert s2._step_jit is solver._step_jit        # no recompile
     np.testing.assert_array_equal(np.asarray(st2.phase),
                                   np.asarray(st.phase))

@@ -99,12 +99,22 @@ def test_gpu_hash_seeds_requires_fft_layout():
         s.init(gpu_hash_seeds=(0.3, 0.8))
 
 
-def test_fields_pallas_rejects_non_multiple_of_8():
-    import pytest
-    from tpu_ocean.ops.fields_pallas import fields_pallas
-    a = jnp.zeros((12, 12), jnp.float32)
-    with pytest.raises(ValueError, match="multiple of 8"):
-        fields_pallas(a, a, a, 1.0)
+@pytest.mark.parametrize("backend", ["pallas", "pallas_fused", "fft"])
+def test_unknown_fft_backend_names_the_valid_ones(backend):
+    """Backends that no longer exist (the removed Pallas kernels) or never
+    did fail at construction with the list of valid backends."""
+    from tpu_ocean.fft import BACKENDS
+    from tpu_ocean.parallel import make_mesh
+    from tpu_ocean.solver_dist import DistributedOceanSolver
+    cfg = OceanConfig(resolution=16, length=16.0, wind=(5.0, 3.0),
+                      amplitude=0.1, spectrum_layout="fft",
+                      normals_mode="stencil")
+    for build in (lambda: OceanSolver(cfg, fft_backend=backend),
+                  lambda: DistributedOceanSolver(cfg, make_mesh(shard=2),
+                                                 fft_backend=backend)):
+        with pytest.raises(ValueError) as e:
+            build()
+        assert str(BACKENDS) in str(e.value)
 
 
 def test_distributed_jonswap_matches_single():
@@ -123,51 +133,25 @@ def test_distributed_jonswap_matches_single():
                                atol=1e-4 * np.abs(np.asarray(f1.height)).max())
 
 
-def test_pallas_plain_routes_to_fused_at_scale(monkeypatch):
-    """Roadmap #14 / VERDICT r3 #2: the non-fused 'pallas' backend crashed
-    the TPU worker at 8192² (UNAVAILABLE, r3 family sweep) — at or beyond
-    solver.PALLAS_PLAIN_ROUTE_N the solver must route to 'pallas_fused'
-    internally so no user-reachable config can kill the worker. Threshold
-    lowered so the test runs at a small grid; the fields must stay
-    identical (the fused pipeline is output-equivalent)."""
-    import numpy as np
-    import tpu_ocean.solver as solver_mod
-    from tpu_ocean.config import OceanConfig
-    cfg = OceanConfig(resolution=64, length=64.0, wind=(8.0, 5.0),
-                      amplitude=0.4, spectrum_layout="fft",
-                      normals_mode="stencil")
-    monkeypatch.setattr(solver_mod, "PALLAS_PLAIN_ROUTE_N", 64)
-    routed = solver_mod.OceanSolver(cfg, fft_backend="pallas",
-                                    real_state=True)
-    assert routed.fft_backend == "pallas_fused"
-    # half_spectrum opts out (explicit plane-pipeline switch)
-    kept = solver_mod.OceanSolver(cfg, fft_backend="pallas", real_state=True,
-                                  pack_channels=True, half_spectrum=True)
-    assert kept.fft_backend == "pallas"
-    # centered layout cannot ride the fused pipeline — and since r5 the
-    # constructor REFUSES rather than building the exact non-fused plane
-    # set that crashed the worker in r3 (review finding)
-    ccfg = OceanConfig(resolution=64, length=64.0, wind=(8.0, 5.0),
-                       amplitude=0.4, spectrum_layout="centered",
-                       normals_mode="spectral")
-    import pytest
-    with pytest.raises(ValueError, match="centered"):
-        solver_mod.OceanSolver(ccfg, fft_backend="pallas")
-    # below the route threshold centered+pallas stays constructible
-    monkeypatch.setattr(solver_mod, "PALLAS_PLAIN_ROUTE_N", 8192)
-    plain = solver_mod.OceanSolver(ccfg, fft_backend="pallas")
-    assert plain.fft_backend == "pallas"
-    monkeypatch.setattr(solver_mod, "PALLAS_PLAIN_ROUTE_N", 64)
-    # routed output == explicit fused output (same program)
-    import jax
-    explicit = solver_mod.OceanSolver(cfg, fft_backend="pallas_fused",
-                                      real_state=True)
-    s1 = routed.init(jax.random.PRNGKey(3))
-    s2 = explicit.init(jax.random.PRNGKey(3))
-    _, f1 = routed.step(s1, 1 / 60)
-    _, f2 = explicit.step(s2, 1 / 60)
-    np.testing.assert_array_equal(np.asarray(f1.height),
-                                  np.asarray(f2.height))
+def test_shipping_switches_at_any_even_resolution():
+    """The shipping switch set (solver.PRODUCTION) has only the math's
+    constraint — an even N for the N/2+1-row C2R input — so grids the old
+    hand kernels refused (N % 16, N < 64) build, step, and match the
+    unpacked full-transform step."""
+    from tpu_ocean.solver import PRODUCTION
+    for n in (24, 40, 96):
+        cfg = OceanConfig(resolution=n, length=float(n), wind=(8.0, 5.0),
+                          amplitude=0.4, spectrum_layout="fft",
+                          normals_mode="stencil", evolution_mode="phase",
+                          dispersion_mode="capillary")
+        ship = OceanSolver(cfg, **PRODUCTION)
+        full = OceanSolver(cfg, real_state=True, pack_channels=True)
+        key = jax.random.PRNGKey(3)
+        _, f1 = ship.step(ship.init(key), 1 / 60)
+        _, f2 = full.step(full.init(key), 1 / 60)
+        h = np.asarray(f2.height)
+        np.testing.assert_allclose(np.asarray(f1.height), h,
+                                   atol=5e-6 * np.abs(h).max())
 
 
 def test_fields_at_refuses_phase_mode():

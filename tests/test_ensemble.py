@@ -47,7 +47,7 @@ def test_ensemble_size_validation():
 
 
 @pytest.mark.parametrize("chunks,backend", [(1, "reference"), (3, "reference"),
-                                            (3, "pallas")])
+                                            (3, "matmul")])
 def test_overlap_chunks_identical_results(chunks, backend):
     cfg = _cfg(32)
     mesh = make_mesh(shard=8)
@@ -65,7 +65,7 @@ def test_overlap_chunks_identical_results(chunks, backend):
                                       np.asarray(f2.height))
         np.testing.assert_array_equal(np.asarray(f1.foam),
                                       np.asarray(f2.foam))
-    else:   # pallas four-step: fp32-equivalent, not bit-identical
+    else:   # matmul four-step: fp32-equivalent, not bit-identical
         np.testing.assert_allclose(np.asarray(f2.height),
                                    np.asarray(f1.height), atol=2e-5)
 
@@ -94,13 +94,14 @@ def test_ensemble_of_distributed_patches_matches_members():
 
 
 def test_dp_sp_composition_with_fused_backend():
-    """DP × SP (spmd-vmapped shard_map) composes with the fused Pallas
-    local pipeline — members match the single-patch fused solver."""
+    """DP × SP (spmd-vmapped shard_map) composes with the shipping switch
+    set (plane state, packing, the mirror-balanced sharded C2R)."""
     from tpu_ocean.ensemble import EnsembleDistributedSolver
+    from tpu_ocean.solver import PRODUCTION
     cfg = _cfg(32)
     mesh = make_mesh(batch=2, shard=4)
     combo = EnsembleDistributedSolver(cfg, mesh, ensemble_size=2,
-                                      fft_backend="pallas_fused")
+                                      **PRODUCTION)
     st = combo.init(jax.random.PRNGKey(3))
     st, f = combo.step(st, 1 / 60)
     assert f.height.shape == (2, 32, 32)
@@ -108,14 +109,13 @@ def test_dp_sp_composition_with_fused_backend():
 
 
 def test_ensemble_threads_member_solver_switches():
-    """pack_channels / real_state / pallas_fields pass through to every
+    """pack_channels / real_state / half_spectrum pass through to every
     member: the packed-real ensemble matches standalone packed-real solvers
     member-exactly (the production member variant ensembles identically)."""
     from tpu_ocean.solver import OceanStateReal
     cfg = _cfg()
     mesh = make_mesh(batch=4, shard=2)
-    kw = dict(fft_backend="pallas", real_state=True, pack_channels=True,
-              pallas_fields=True)
+    kw = dict(real_state=True, pack_channels=True)
     ens = EnsembleOceanSolver(cfg, mesh, ensemble_size=4, **kw)
     key = jax.random.PRNGKey(9)
     state = ens.init(key)
@@ -144,14 +144,13 @@ def test_ensemble_threads_member_solver_switches():
 
 def test_dp_sp_composition_real_state():
     """DP × SP with real_state=True: the composed step runs on the
-    OceanStateReal pytree (complex-free end to end) and member 0 matches a
+    OceanStateReal pytree and member 0 matches a
     standalone real-state distributed run with the same key."""
     from tpu_ocean.ensemble import EnsembleDistributedSolver
     from tpu_ocean.solver import OceanStateReal
     cfg = _cfg(32)
     mesh = make_mesh(batch=2, shard=4)
     combo = EnsembleDistributedSolver(cfg, mesh, ensemble_size=2,
-                                      fft_backend="pallas",
                                       real_state=True)
     key = jax.random.PRNGKey(13)
     st = combo.init(key)
@@ -161,7 +160,7 @@ def test_dp_sp_composition_real_state():
     assert f.height.shape == (2, 32, 32)
 
     solo = DistributedOceanSolver(_cfg(32), make_mesh(shard=8),
-                                  fft_backend="pallas", real_state=True)
+                                  real_state=True)
     keys = jax.random.split(key, 2)
     for i in range(2):
         s0 = solo.init(keys[i])

@@ -81,3 +81,34 @@ def test_backends_agree_in_solver():
         np.testing.assert_allclose(outs[backend], outs["reference"],
                                    atol=3e-5 * scale,
                                    err_msg=f"{backend} disagrees with reference")
+
+
+@pytest.mark.parametrize("precision", ["float32", "bfloat16"])
+def test_matmul_precision_policy(precision):
+    """f32 dots run at Precision.HIGHEST (no reduced-precision f32 path);
+    'bfloat16' casts the dot operands to bf16 explicitly and accumulates
+    in f32 — never by leaning on the default precision."""
+    import jax
+    from tpu_ocean.fft.matmul import ifft2_matmul
+    x = jnp.ones((2, 32, 32), jnp.complex64)
+    jaxpr = jax.make_jaxpr(lambda a: ifft2_matmul(a, precision=precision))(x)
+    dots = [e for e in jaxpr.jaxpr.eqns if e.primitive.name == "dot_general"]
+    assert dots
+    for e in dots:
+        ins = {v.aval.dtype for v in e.invars}
+        assert e.outvars[0].aval.dtype == jnp.float32
+        if precision == "float32":
+            assert ins == {jnp.dtype(jnp.float32)}
+            assert str(e.params["precision"]).count("HIGHEST") == 2
+        else:
+            assert ins == {jnp.dtype(jnp.bfloat16)}
+            assert "HIGHEST" not in str(e.params["precision"])
+    with pytest.raises(ValueError, match="precision"):
+        ifft2_matmul(x, precision="tf32")
+
+
+def test_get_ifft2_names_valid_backends():
+    from tpu_ocean.fft import BACKENDS, get_ifft2
+    with pytest.raises(ValueError) as e:
+        get_ifft2("pallas", 32)
+    assert str(BACKENDS) in str(e.value)

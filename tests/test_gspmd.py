@@ -46,11 +46,11 @@ def test_gspmd_matches_single_device(backend, pack):
 
 def test_gspmd_rejects_pallas_and_real_state():
     mesh = make_mesh(shard=8)
-    with pytest.raises(ValueError, match="Pallas"):
-        make_gspmd_step(OceanSolver(CFG, fft_backend="pallas"), mesh)
+    # the Pallas backend is gone: the solver refuses it by name
+    with pytest.raises(ValueError, match="unknown fft backend"):
+        OceanSolver(CFG, fft_backend="pallas")
     with pytest.raises(ValueError, match="real_state"):
-        make_gspmd_step(
-            OceanSolver(CFG, fft_backend="pallas", real_state=True), mesh)
+        make_gspmd_step(OceanSolver(CFG, real_state=True), mesh)
 
 
 def test_gspmd_collectives_strictly_worse_than_shard_map():
@@ -61,7 +61,7 @@ def test_gspmd_collectives_strictly_worse_than_shard_map():
     from scaling_model import (gspmd_step_hlo, hlo_collective_inventory,
                                step_collectives_model)
     n, d = 64, 8
-    hand = step_collectives_model(n, d, "matmul")
+    hand = step_collectives_model(n, d)
 
     ref = hlo_collective_inventory(gspmd_step_hlo(n, "reference"))
     # full grid gathered: 3 channels · N² · 8 B (complex64), no 1/D factor

@@ -1,10 +1,10 @@
-"""Half-spectrum (C2R) route (pallas_fft.ifft2_planes_half, VERDICT r3 #1):
+"""Half-spectrum (C2R) route (fft.reference.irfft2_half, VERDICT r3 #1):
 the last packed channel's spectrum is exactly Hermitian, so its transform
-computes spectral rows 0..N/2 only and folds the conjugate half analytically.
+reads spectral rows 0..N/2 only (jnp.fft.irfft2 over the k1 axis).
 
 Parity claims under test:
   * transform level — on ANY Hermitian spectrum, the half route equals the
-    Re part of the full complex transform (both storage regimes);
+    Re part of the full complex transform, for any leading batch shape;
   * solver level — OceanSolver(..., half_spectrum=True) reproduces the
     packed solver's fields to f32 rounding (which itself matches unpacked,
     test_packing).
@@ -18,7 +18,7 @@ import pytest
 
 from tpu_ocean.config import OceanConfig
 from tpu_ocean.solver import OceanSolver
-from tests.test_packing import _cfg, _pair, _assert_fields_close
+from test_packing import _cfg, _pair, _assert_fields_close
 
 
 def _hermitian_spectrum(n, c=1, seed=0, scale=0.3):
@@ -31,65 +31,52 @@ def _hermitian_spectrum(n, c=1, seed=0, scale=0.3):
     return s
 
 
-@pytest.mark.parametrize("n", [64, 256])
-def test_half_transform_matches_full_re(n):
-    from tpu_ocean.fft.pallas_fft import ifft2_planes_auto, ifft2_planes_half
-    s = _hermitian_spectrum(n, c=2, seed=3)
+@pytest.mark.parametrize("n", [64, 256, 384, 640, 1024])
+@pytest.mark.parametrize("batch", [(2,), (2, 3)])
+def test_half_transform_matches_full_re(n, batch):
+    """ifft2_planes_half on rows 0..N/2 == Re of the full ifft2_planes
+    (unnormalized: no 1/N² anywhere), any leading batch shape; N runs over
+    powers of two and the non-power-of-two grids 384 and 640."""
+    from tpu_ocean.fft.reference import ifft2_planes, ifft2_planes_half
+    c = int(np.prod(batch))
+    s = _hermitian_spectrum(n, c=c, seed=3).reshape(batch + (n, n))
     re = jnp.asarray(s.real, jnp.float32)
     im = jnp.asarray(s.imag, jnp.float32)
-    fr, fi = ifft2_planes_auto(re, im, True)
+    fr, fi = ifft2_planes(re, im)
     m = n // 2
-    half = ifft2_planes_half(re[:, :m + 1], im[:, :m + 1], True)
+    half = ifft2_planes_half(re[..., :m + 1, :], im[..., :m + 1, :])
+    assert half.shape == batch + (n, n)
     scale = np.abs(np.asarray(fr)).max()
+    # unnormalized scale: the f64 numpy inverse times N²
+    want = np.fft.ifft2(s).real * n * n
+    np.testing.assert_allclose(np.asarray(fr), want, atol=2e-5 * scale)
     # full transform of a Hermitian spectrum is real: Im ≈ 0 pins the input
     assert np.abs(np.asarray(fi)).max() < 1e-4 * scale
     np.testing.assert_allclose(np.asarray(half), np.asarray(fr),
                                atol=2e-5 * scale)
 
 
-def test_half_transform_natural_store_regime():
-    """Force the large-N regime (natural-store row kernel + einsum column)
-    at a small N via the public cap override — the 4096² code path."""
-    from tpu_ocean.fft import pallas_fft
-    n = 128
-    s = _hermitian_spectrum(n, c=1, seed=5)
-    re = jnp.asarray(s.real, jnp.float32)
-    im = jnp.asarray(s.imag, jnp.float32)
-    fr, _ = pallas_fft.ifft2_planes_auto(re, im, True)
-    with pallas_fft.transposed_store_cap(32):
-        half = pallas_fft.ifft2_planes_half(re[:, :n // 2 + 1],
-                                            im[:, :n // 2 + 1], True)
-    scale = np.abs(np.asarray(fr)).max()
-    np.testing.assert_allclose(np.asarray(half), np.asarray(fr),
-                               atol=2e-5 * scale)
-
-
 def test_half_transform_validates_input():
-    from tpu_ocean.fft.pallas_fft import ifft2_planes_half
+    from tpu_ocean.fft.reference import ifft2_planes_half
     x = jnp.zeros((1, 30, 64), jnp.float32)
     with pytest.raises(ValueError, match="N/2"):
-        ifft2_planes_half(x, x, True)
-    y = jnp.zeros((1, 33, 64), jnp.float32)
-    with pytest.raises(NotImplementedError):
-        ifft2_planes_half(y, y, inverse=False)
+        ifft2_planes_half(x, x)
 
 
-@pytest.mark.parametrize("normals,fields_kernel,backend", [
-    ("stencil", False, "pallas"), ("stencil", True, "pallas"),
-    ("spectral", False, "pallas"),
-    ("stencil", False, "pallas_fused"), ("stencil", True, "pallas_fused"),
-    ("spectral", False, "pallas_fused")])
-def test_half_spectrum_step_matches_packed(normals, fields_kernel, backend):
+@pytest.mark.parametrize("normals,n,real", [
+    ("stencil", 64, True), ("stencil", 64, False),
+    ("spectral", 64, True), ("spectral", 64, False),
+    ("stencil", 48, True), ("stencil", 48, False)])
+def test_half_spectrum_step_matches_packed(normals, n, real):
     """Flagship-shaped parity: half_spectrum vs plain packed on the SAME
-    injected h0 (CLAUDE.md: one shared h0, never independent draws).
-    'pallas_fused' rides ifft2_fused_planes_half — in-kernel assembly
-    composed with the C2R fold."""
-    cfg = _cfg(n=64, normals=normals)
-    h0, h0c = _pair(64)
-    kw = dict(real_state=True, pack_channels=True,
-              pallas_fields=fields_kernel)
-    ref = OceanSolver(cfg, fft_backend="pallas", **kw)
-    got = OceanSolver(cfg, fft_backend=backend, half_spectrum=True, **kw)
+    injected h0 (one shared h0, never independent draws), for both state
+    layouts (OceanStateReal planes and complex OceanState) and a grid that
+    is not a power of two."""
+    cfg = _cfg(n=n, normals=normals)
+    h0, h0c = _pair(n)
+    kw = dict(real_state=real, pack_channels=True)
+    ref = OceanSolver(cfg, **kw)
+    got = OceanSolver(cfg, half_spectrum=True, **kw)
     s_ref = ref.init(h0=h0, h0_conj=h0c)
     s_got = got.init(h0=h0, h0_conj=h0c)
     for _ in range(3):
@@ -98,38 +85,16 @@ def test_half_spectrum_step_matches_packed(normals, fields_kernel, backend):
     _assert_fields_close(f_got, f_ref, 5e-6)
 
 
-def test_half_spectrum_fused_natural_store_regime():
-    """Fused half route in the LARGE-N regime (natural-store fused row
-    kernel + einsum column at length N/2 — the 4096² path), forced at a
-    small N via the public cap override."""
-    from tpu_ocean.fft import pallas_fft
-    cfg = _cfg(n=128)
-    h0, h0c = _pair(128)
-    kw = dict(real_state=True, pack_channels=True, half_spectrum=True)
-    ref = OceanSolver(cfg, fft_backend="pallas", **kw)
-    s_ref = ref.init(h0=h0, h0_conj=h0c)
-    s_ref, f_ref = ref.step(s_ref, 1 / 60)
-    with pallas_fft.transposed_store_cap(32):
-        got = OceanSolver(cfg, fft_backend="pallas_fused", **kw)
-        s_got = got.init(h0=h0, h0_conj=h0c)
-        s_got, f_got = got.step(s_got, 1 / 60)
-    _assert_fields_close(f_got, f_ref, 5e-6)
-
-
 def test_half_spectrum_validation():
     cfg = _cfg(n=64)
     with pytest.raises(ValueError, match="pack_channels"):
-        OceanSolver(cfg, fft_backend="pallas", real_state=True,
+        OceanSolver(cfg, real_state=True, half_spectrum=True)
+    with pytest.raises(ValueError, match="reference"):
+        OceanSolver(cfg, fft_backend="matmul", pack_channels=True,
                     half_spectrum=True)
-    with pytest.raises(ValueError, match="real_state"):
-        OceanSolver(cfg, fft_backend="pallas", pack_channels=True,
+    with pytest.raises(ValueError, match="even"):
+        OceanSolver(_cfg(n=25), real_state=True, pack_channels=True,
                     half_spectrum=True)
-    with pytest.raises(ValueError, match="real_state|pallas"):
-        OceanSolver(cfg, fft_backend="matmul", real_state=True,
-                    pack_channels=True, half_spectrum=True)
-    with pytest.raises(ValueError, match="resolution"):
-        OceanSolver(_cfg(n=24), fft_backend="pallas", real_state=True,
-                    pack_channels=True, half_spectrum=True)
 
 
 def test_half_spectrum_simulation_passthrough(tmp_path):
@@ -137,8 +102,7 @@ def test_half_spectrum_simulation_passthrough(tmp_path):
     the trajectory bitwise (same wire format — no new state)."""
     from tpu_ocean.runtime import Simulation
     cfg = _cfg(n=64)
-    kw = dict(fft_backend="pallas", real_state=True, pack_channels=True,
-              half_spectrum=True)
+    kw = dict(real_state=True, pack_channels=True, half_spectrum=True)
     sim = Simulation(cfg, out_dir=str(tmp_path), checkpoint_every=2, **kw)
     assert sim.solver.half_spectrum
     sim.run(2)
@@ -153,7 +117,8 @@ def test_half_spectrum_simulation_passthrough(tmp_path):
 
 
 @pytest.mark.parametrize("normals", ["stencil", "spectral"])
-def test_half_spectrum_cascade_matches_packed(normals):
+@pytest.mark.parametrize("real", [True, False])
+def test_half_spectrum_cascade_matches_packed(normals, real):
     """CascadeSolver(half_spectrum=True): every band's last packed channel
     rides ONE batched C2R transform over the band axis (B triples on B×1.5
     transform-equivalents) — fields match the plain packed cascade on the
@@ -162,13 +127,12 @@ def test_half_spectrum_cascade_matches_packed(normals):
     from tpu_ocean.cascade import CascadeSolver, default_cascade
     cfgs = [dataclasses.replace(c, normals_mode=normals)
             for c in default_cascade(n=64, lengths=(100.0, 13.0))]
-    kw = dict(fft_backend="pallas", real_state=True, pack_channels=True)
+    kw = dict(real_state=real, pack_channels=True)
     ref = CascadeSolver(cfgs, **kw)
     got = CascadeSolver(cfgs, half_spectrum=True, **kw)
     key = jax.random.PRNGKey(11)
     s_ref, s_got = ref.init(key), got.init(key)
-    np.testing.assert_array_equal(np.asarray(s_ref.h0_re),
-                                  np.asarray(s_got.h0_re))
+    np.testing.assert_array_equal(np.asarray(s_ref[0]), np.asarray(s_got[0]))
     for _ in range(3):
         s_ref, f_ref = ref.step(s_ref, 1 / 60)
         s_got, f_got = got.step(s_got, 1 / 60)
@@ -183,11 +147,9 @@ def test_half_spectrum_lod_cascade_and_reconfigure():
     from tpu_ocean.cascade import CascadeSolver, default_cascade
     from tpu_ocean.lod import LODCascadeSolver
     cfgs = default_cascade(n=64, lengths=(100.0, 13.0))
-    kw = dict(fft_backend="pallas", real_state=True, pack_channels=True,
-              half_spectrum=True)
+    kw = dict(real_state=True, pack_channels=True, half_spectrum=True)
     ref = LODCascadeSolver(cfgs, periods=(1, 2), **kw)
-    plain = LODCascadeSolver(cfgs, periods=(1, 2),
-                             fft_backend="pallas", real_state=True,
+    plain = LODCascadeSolver(cfgs, periods=(1, 2), real_state=True,
                              pack_channels=True)
     assert ref.inner.half_spectrum
     s_a, s_b = ref.init(jax.random.PRNGKey(3)), plain.init(
@@ -208,15 +170,14 @@ def test_half_spectrum_cascade_validation():
     from tpu_ocean.cascade import CascadeSolver, default_cascade
     cfgs = default_cascade(n=64, lengths=(100.0, 13.0))
     with pytest.raises(ValueError, match="pack_channels"):
-        CascadeSolver(cfgs, fft_backend="pallas", real_state=True,
+        CascadeSolver(cfgs, real_state=True, half_spectrum=True)
+    with pytest.raises(ValueError, match="reference"):
+        CascadeSolver(cfgs, fft_backend="matmul", pack_channels=True,
                       half_spectrum=True)
-    with pytest.raises(ValueError, match="real_state"):
-        CascadeSolver(cfgs, fft_backend="pallas", pack_channels=True,
+    bad = default_cascade(n=25, lengths=(100.0,))
+    with pytest.raises(ValueError, match="even"):
+        CascadeSolver(bad, real_state=True, pack_channels=True,
                       half_spectrum=True)
-    bad = default_cascade(n=24, lengths=(100.0,))
-    with pytest.raises(ValueError, match="resolution|real_state|pallas"):
-        CascadeSolver(bad, fft_backend="pallas", real_state=True,
-                      pack_channels=True, half_spectrum=True)
 
 
 def test_half_spectrum_cascade_simulation_passthrough(tmp_path):
@@ -225,8 +186,7 @@ def test_half_spectrum_cascade_simulation_passthrough(tmp_path):
     from tpu_ocean.cascade import default_cascade
     from tpu_ocean.runtime import CascadeSimulation
     cfgs = default_cascade(n=64, lengths=(100.0, 13.0))
-    kw = dict(fft_backend="pallas", real_state=True, pack_channels=True,
-              half_spectrum=True)
+    kw = dict(real_state=True, pack_channels=True, half_spectrum=True)
     sim = CascadeSimulation(cfgs, out_dir=str(tmp_path),
                             checkpoint_every=2, **kw)
     assert sim.solver.half_spectrum
@@ -252,7 +212,7 @@ def test_half_spectrum_velocity_matches_packed():
     the height channel); values match the packed solver's velocity."""
     cfg = _cfg(n=64)
     h0, h0c = _pair(64)
-    kw = dict(fft_backend="pallas", real_state=True, pack_channels=True)
+    kw = dict(real_state=True, pack_channels=True)
     ref = OceanSolver(cfg, **kw)
     got = OceanSolver(cfg, half_spectrum=True, **kw)
     s_ref = ref.init(h0=h0, h0_conj=h0c)
@@ -268,7 +228,7 @@ def test_half_spectrum_velocity_matches_packed():
 def test_half_spectrum_cascade_velocity_matches_packed():
     from tpu_ocean.cascade import CascadeSolver, default_cascade
     cfgs = default_cascade(n=64, lengths=(100.0, 13.0))
-    kw = dict(fft_backend="pallas", real_state=True, pack_channels=True)
+    kw = dict(real_state=True, pack_channels=True)
     ref = CascadeSolver(cfgs, **kw)
     got = CascadeSolver(cfgs, half_spectrum=True, **kw)
     key = jax.random.PRNGKey(4)
@@ -279,85 +239,3 @@ def test_half_spectrum_cascade_velocity_matches_packed():
     v_got = np.asarray(got.velocity(s_got))
     scale = max(np.abs(v_ref).max(), 1e-6)
     assert np.abs(v_got - v_ref).max() < 5e-6 * scale
-
-
-def test_half_natural_regime_kernel_column():
-    """Natural-store half route with the COLUMN pass on the transposed-
-    store kernel (HALF_NAT_COLUMN_KERNEL): the C2R fold halves the column
-    length, so at 4096² it fits the fused kernel's envelope while the full
-    path's column cannot. Forced at a small N: cap 64 routes N=128 through
-    the natural regime AND keeps M=64 ≤ cap for the kernel column."""
-    from tpu_ocean.fft import pallas_fft
-    n = 128
-    s = _hermitian_spectrum(n, c=2, seed=11)
-    re = jnp.asarray(s.real, jnp.float32)
-    im = jnp.asarray(s.imag, jnp.float32)
-    fr, _ = pallas_fft.ifft2_planes_auto(re, im, True)
-    assert pallas_fft.HALF_NAT_COLUMN_KERNEL
-    with pallas_fft.transposed_store_cap(64):
-        half = pallas_fft.ifft2_planes_half(re[:, :n // 2 + 1],
-                                            im[:, :n // 2 + 1], True)
-    scale = np.abs(np.asarray(fr)).max()
-    np.testing.assert_allclose(np.asarray(half), np.asarray(fr),
-                               atol=2e-5 * scale)
-
-
-def test_full_column_radix2_kernel_matches_einsum(monkeypatch):
-    """Large-N FULL transform with the radix-2 DIT column engine
-    (COLUMN_RADIX2_KERNEL — kept implemented but DISABLED by default, a
-    measured hardware loss: bench/PROBE_r4_column_radix2.json): two
-    half-length transposed-store kernel calls + one twiddle butterfly
-    replace the einsum column pass. Forced small: cap 64 routes N=128
-    through the natural regime with M/2 = 64 ≤ cap."""
-    from tpu_ocean.fft import pallas_fft
-    n = 128
-    s = _hermitian_spectrum(n, c=2, seed=13)
-    # a GENERAL complex spectrum (not Hermitian): perturb asymmetry
-    s = s + 0.3j * np.random.default_rng(5).normal(size=s.shape)
-    re = jnp.asarray(s.real, jnp.float32)
-    im = jnp.asarray(s.imag, jnp.float32)
-    want_r, want_i = pallas_fft.ifft2_planes_auto(re, im, True)
-    monkeypatch.setattr(pallas_fft, "COLUMN_RADIX2_KERNEL", True)
-    with pallas_fft.transposed_store_cap(64):
-        got_r, got_i = pallas_fft.ifft2_planes_auto(re, im, True)
-    scale = np.abs(np.asarray(want_r)).max()
-    np.testing.assert_allclose(np.asarray(got_r), np.asarray(want_r),
-                               atol=2e-5 * scale)
-    np.testing.assert_allclose(np.asarray(got_i), np.asarray(want_i),
-                               atol=2e-5 * scale)
-    # forward direction too (the butterfly's sign path)
-    monkeypatch.setattr(pallas_fft, "COLUMN_RADIX2_KERNEL", False)
-    fw_r, fw_i = pallas_fft.ifft2_planes_auto(re, im, False)
-    monkeypatch.setattr(pallas_fft, "COLUMN_RADIX2_KERNEL", True)
-    with pallas_fft.transposed_store_cap(64):
-        fg_r, fg_i = pallas_fft.ifft2_planes_auto(re, im, False)
-    np.testing.assert_allclose(np.asarray(fg_r), np.asarray(fw_r),
-                               atol=2e-5 * scale)
-    np.testing.assert_allclose(np.asarray(fg_i), np.asarray(fw_i),
-                               atol=2e-5 * scale)
-
-
-def test_half_column_radix2_matches_einsum_route():
-    """The 8192²-regime half-column radix-2 DIT (two M/2 kernel columns +
-    butterfly — pallas_fft.HALF_COLUMN_RADIX2) is numerically exact
-    against the default route; forced at a small size via the cap
-    override. Default ON in its regime per the hardware A/B — 58.97 vs
-    64.21 ms at 8192² (bench/PROBE_r5_half_radix2_8192.json)."""
-    from tpu_ocean.fft import pallas_fft as pf
-    n = 512
-    s = _hermitian_spectrum(n, c=1, seed=3)
-    re = jnp.asarray(s.real, jnp.float32)
-    im = jnp.asarray(s.imag, jnp.float32)
-    m = n // 2
-    want = pf.ifft2_planes_half(re[:, :m + 1], im[:, :m + 1], True)
-    old = pf.HALF_COLUMN_RADIX2, pf.HALF_NAT_COLUMN_KERNEL
-    try:
-        pf.HALF_COLUMN_RADIX2 = True
-        pf.HALF_NAT_COLUMN_KERNEL = False     # close the direct kernel door
-        with pf.transposed_store_cap(128):    # m=256 > cap → natural regime
-            got = pf.ifft2_planes_half(re[:, :m + 1], im[:, :m + 1], True)
-    finally:
-        pf.HALF_COLUMN_RADIX2, pf.HALF_NAT_COLUMN_KERNEL = old
-    scale = np.abs(np.asarray(want)).max()
-    np.testing.assert_allclose(np.asarray(got), np.asarray(want),
-                               atol=3e-5 * scale)

@@ -87,9 +87,9 @@ _WORKER_HALF = textwrap.dedent("""
                       amplitude=0.1, evolution_mode="phase",
                       dispersion_mode="capillary", spectrum_layout="fft",
                       normals_mode="stencil")
-    solver = DistributedOceanSolver(cfg, mesh, fft_backend="pallas",
+    solver = DistributedOceanSolver(cfg, mesh,
                                     real_state=True, pack_channels=True,
-                                    half_spectrum=True, pallas_fields=True)
+                                    half_spectrum=True)
     st = solver.init(jax.random.PRNGKey(0))
     for _ in range(2):
         st, f = solver.step(st, 1 / 60)

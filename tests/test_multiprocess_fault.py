@@ -1,4 +1,4 @@
-"""Multi-host fault injection (SURVEY.md §5.3, docs/roadmap.md #10):
+"""Multi-host fault injection (SURVEY.md §5.3, ROADMAP.md):
 
 two REAL processes run the domain-decomposed solver with per-step
 checkpointing; one process is killed mid-run; the supervisor (this test)
@@ -41,9 +41,9 @@ _WORKER = textwrap.dedent("""
                       amplitude=0.1, evolution_mode="phase",
                       dispersion_mode="capillary", spectrum_layout="fft",
                       normals_mode="stencil")
-    solver = DistributedOceanSolver(cfg, mesh, fft_backend="pallas",
+    solver = DistributedOceanSolver(cfg, mesh,
                                     real_state=True, pack_channels=True,
-                                    half_spectrum=True, pallas_fields=True)
+                                    half_spectrum=True)
 
     rep = NamedSharding(mesh, P())
     gather = jax.jit(lambda x: x, out_shardings=rep)

@@ -42,7 +42,7 @@ _WORKER = textwrap.dedent("""
                       amplitude=0.1, evolution_mode="phase",
                       dispersion_mode="capillary", spectrum_layout="fft",
                       normals_mode="stencil")
-    solver = DistributedOceanSolver(cfg, mesh, fft_backend="pallas",
+    solver = DistributedOceanSolver(cfg, mesh,
                                     real_state=True)
 
     st = solver.init(jax.random.PRNGKey(7))

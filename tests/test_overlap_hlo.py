@@ -1,8 +1,9 @@
 """Structural proof of the transpose/compute overlap (VERDICT r1 #4).
 
-True ICI/MXU overlap is a TPU backend *schedule* property (all-to-all-start
-of chunk k issued before the column butterflies of chunk k−1 retire) and can
-only be observed in a multi-chip TPU compile, which this environment lacks.
+True transfer/compute overlap is a backend *schedule* property
+(all-to-all-start of chunk k issued before the column transforms of chunk
+k−1 retire) and can only be observed in a multi-device GPU compile and
+trace.
 What CAN be proven — and what the overlap structurally requires — is chunk
 INDEPENDENCE in the compiled HLO:
 

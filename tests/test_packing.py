@@ -56,12 +56,8 @@ def _assert_fields_close(got, want, tol_scale, foam_scale=25.0):
         b = np.asarray(getattr(got, name))
         if name == "normal":
             # normalization amplifies f32 rounding where the slope is tiny
-            # (house style: test_parity's 1e-3 band). 2e-4: the Gauss 3-dot
-            # complex product (pallas_fft._gauss_cmul, a measured 13% step
-            # win) costs ~1 ulp of cancellation in its imaginary part, which
-            # the near-flat-normal renormalization amplifies to just over
-            # 1e-4 on isolated texels (worst observed: 1 texel in 12288 at
-            # 1.24e-4); every other field stays on the tight band below
+            # (house style: test_parity's 1e-3 band); every other field
+            # stays on the tight band below
             tol = 2e-4
         else:
             scale = foam_scale if name == "foam" else 1.0
@@ -181,7 +177,7 @@ def test_symmetrize_preserves_fields_without_selfpaired_content():
     ("stencil", "reference"),
     ("spectral", "reference"),
     ("stencil", "matmul"),
-    ("stencil", "pallas"),
+    ("stencil", "stockham"),
 ])
 def test_packed_step_matches_unpacked_on_hermitized_state(normals, backend):
     """The core parity claim: same hermitized h0 into a packed and an
@@ -206,16 +202,15 @@ def test_packed_step_matches_unpacked_on_hermitized_state(normals, backend):
 
 
 @pytest.mark.parametrize("normals", ["stencil", "spectral"])
-def test_packed_fused_kernel_matches_reference_packed(normals):
-    """pallas_fused assembles the packed channels IN-KERNEL (the Nyquist
-    odd-part masking runs on wavevectors rebuilt from iota) — must agree
-    with the jnp packed assembly."""
+def test_packed_matmul_matches_reference_packed(normals):
+    """The four-step matmul backend (f32 dots at HIGHEST) transforms the
+    packed channels to the jnp.fft result's f32 rounding."""
     n = 64
     cfg = _cfg(n, normals=normals, evolution_mode="phase",
                dispersion_mode="capillary")
     key = jax.random.PRNGKey(11)
     ref = OceanSolver(cfg, fft_backend="reference", pack_channels=True)
-    fus = OceanSolver(cfg, fft_backend="pallas_fused", pack_channels=True)
+    fus = OceanSolver(cfg, fft_backend="matmul", pack_channels=True)
     s1, s2 = ref.init(key), fus.init(key)
     for _ in range(2):
         s1, f1 = ref.step(s1, 1 / 60)
@@ -224,14 +219,13 @@ def test_packed_fused_kernel_matches_reference_packed(normals):
 
 
 def test_packed_real_state_matches_complex_state():
-    """real_state=True (the TPU timing configuration) packs through the
+    """real_state=True (the shipping configuration) packs through the
     all-f32 plane path — hermitize_planes at init, plane assembly in step."""
     n = 64
     cfg = _cfg(n, evolution_mode="phase", dispersion_mode="capillary")
     h0, h0c = _pair(n, seed=3)
-    cplx = OceanSolver(cfg, fft_backend="pallas", pack_channels=True)
-    real = OceanSolver(cfg, fft_backend="pallas", pack_channels=True,
-                       real_state=True)
+    cplx = OceanSolver(cfg, pack_channels=True)
+    real = OceanSolver(cfg, pack_channels=True, real_state=True)
     s1 = cplx.init(h0=h0, h0_conj=h0c)
     s2 = real.init(h0=jnp.asarray(h0, jnp.complex64),
                    h0_conj=jnp.asarray(h0c, jnp.complex64))
@@ -255,18 +249,22 @@ def test_pack_channels_validation():
 
 # -------------------------------------------------------------- distributed
 
-@pytest.mark.parametrize("backend", ["reference", "pallas", "pallas_fused"])
-def test_distributed_packed_matches_single_device(backend):
-    """Sharded packed step == single-device packed step; packing also cuts
-    the all_to_all transpose volume to P/nch of the unpacked step's."""
+@pytest.mark.parametrize("backend,real", [("reference", False),
+                                          ("reference", True),
+                                          ("matmul", False)])
+def test_distributed_packed_matches_single_device(backend, real):
+    """Sharded packed step == single-device packed step (both state
+    layouts); packing also cuts the all_to_all transpose volume to P/nch
+    of the unpacked step's."""
     mesh = make_mesh(shard=8)
     n = 64
     cfg = _cfg(n)
     h0, h0c = _pair(n)
 
-    single = OceanSolver(cfg, fft_backend=backend, pack_channels=True)
+    single = OceanSolver(cfg, fft_backend=backend, pack_channels=True,
+                         real_state=real)
     dist = DistributedOceanSolver(cfg, mesh, fft_backend=backend,
-                                  pack_channels=True)
+                                  pack_channels=True, real_state=real)
     assert dist._pch == 2
     s1 = single.init(h0=h0, h0_conj=h0c)
     s8 = dist.init(h0=h0, h0_conj=h0c)

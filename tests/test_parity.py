@@ -10,7 +10,7 @@ import jax
 import pytest
 
 from tpu_ocean.config import OceanConfig
-from tpu_ocean.oracle import Oracle
+from tpu_ocean.oracle import Oracle, assert_fields_close
 from tpu_ocean.solver import OceanSolver
 
 
@@ -34,35 +34,10 @@ def _make_case(n, length=None, seed=0, amplitude=0.05):
 
 
 def _assert_fields_close(got, want, rtol, atol_scale):
-    """allclose with atol proportional to each field's dynamic range.
-
-    foam gets a wider atol: smoothstep amplifies float32 rounding near the
-    turbulence threshold (slope up to 1.5), so a handful of near-threshold
-    texels legitimately differ at the 1e-3 level.
-    """
-    for name in ("height", "disp_x", "disp_z", "foam", "jacobian"):
-        g = np.asarray(getattr(got, name))
-        w = np.asarray(getattr(want, name))
-        scale = 25.0 if name == "foam" else 1.0
-        atol = scale * atol_scale * max(np.abs(w).max(), 1e-12)
-        np.testing.assert_allclose(
-            g, w, rtol=rtol, atol=atol,
-            err_msg=f"field {name} diverged from oracle")
-        if name == "foam":
-            # the wide atol must stay a NEAR-THRESHOLD phenomenon, not a
-            # blanket pass: bound how many texels actually use the band.
-            # A localized foam bug below the 25× ceiling would light up
-            # far more than 0.1% of texels at the tight tolerance.
-            tight = atol_scale * max(np.abs(w).max(), 1e-12)
-            frac = np.mean(np.abs(g - w) > tight + rtol * np.abs(w))
-            assert frac < 1e-3, (
-                f"{frac:.2%} of foam texels exceed the tight tolerance "
-                f"(allowed 0.1%) — the smoothstep-threshold explanation "
-                f"no longer covers the error")
-    g = np.asarray(got.normal)
-    w = np.asarray(want.normal)
-    np.testing.assert_allclose(g, w, atol=1e-3,
-                               err_msg="normals diverged from oracle")
+    """Oracle parity tolerance (tpu_ocean.oracle.assert_fields_close): atol
+    proportional to each field's dynamic range, foam under the
+    near-threshold rule, normals to 1e-3 absolute."""
+    assert_fields_close(got, want, rtol=rtol, atol_scale=atol_scale)
 
 
 @pytest.mark.parametrize("backend", ["reference"])
@@ -80,7 +55,7 @@ def test_config1_64sq_single_step(backend):
 
 
 def test_config1_direct_mode_incommensurate_length():
-    """Direct (MXU matmul) evaluation handles length ≠ N·unit_width — the
+    """Direct (dense matmul) evaluation handles length ≠ N·unit_width — the
     FFT Mesh demo's L=12.39 over a 12² unit grid (FFT Mesh.unity:147-150)."""
     n = 12
     cfg = OceanConfig(

@@ -143,7 +143,7 @@ def test_distributed_simulation_resume_is_sharded_and_bitwise(tmp_path):
     from tpu_ocean.parallel import make_mesh
     mesh = make_mesh(shard=8)
     for kw in (dict(fft_backend="reference"),
-               dict(fft_backend="pallas", real_state=True)):
+               dict(real_state=True)):
         out = str(tmp_path / f"dist_run_{kw.get('real_state', False)}")
         cfg = _cfg(32)
         with Simulation(cfg, out_dir=out, checkpoint_every=2, mesh=mesh,

@@ -381,7 +381,7 @@ def test_streams_distributed_velocity():
     (complex-free end to end on the wire)."""
     from tpu_ocean.parallel.mesh import make_mesh
     mesh = make_mesh(shard=8)
-    sim = Simulation(CFG, fft_backend="pallas", real_state=True, mesh=mesh)
+    sim = Simulation(CFG, real_state=True, mesh=mesh)
     with FrameServer(sim, fields=("height", "velocity")) as server:
         host, port = server.address
         frames = []

@@ -1,15 +1,15 @@
-"""tpu_ocean — a TPU-native spectral ocean heightfield framework.
+"""tpu_ocean — a spectral ocean heightfield framework in JAX.
 
-Built from scratch in JAX/XLA/Pallas with the simulation capabilities of the
+Built from scratch in JAX/XLA with the simulation capabilities of the
 Mistral-Water reference (Unity C# + HLSL, see /root/reference): Phillips-spectrum
 initialization, time-evolved dispersion (phase-accumulation and absolute-time),
 batched 2-D inverse Stockham FFTs for height / choppy displacement / slope fields,
 Jacobian-determinant whitecap detection, and a Gerstner/sinusoid wave-bank pond
-solver — domain-decomposed across TPU device meshes for large grids.
+solver — domain-decomposed across device meshes for large grids.
 
-Layer map (SURVEY.md §1, re-architected TPU-first):
+Layer map (SURVEY.md §1, re-architected as array programs):
   L1 math        -> grids.py, spectra.py          (pure jnp, stateless)
-  L2 kernels     -> fft/, fields.py, gerstner.py  (fused XLA + Pallas kernels)
+  L2 kernels     -> fft/, fields.py, gerstner.py  (jnp.fft + fused XLA loops)
   L3 host orch.  -> solver.py                     (one jitted step over a pytree)
   L4 consumers   -> viz.py, observe.py            (exporters / diagnostics)
   L5 config      -> config.py                     (frozen dataclasses + presets)

@@ -7,7 +7,7 @@ own scale and tiling decorrelates. The reference has exactly one patch
 (SURVEY.md D7 lists cascades as the natural EP analogue: independent experts
 with a combine).
 
-TPU-native formulation: all per-band trace-time constants are STACKED into
+Formulation: all per-band trace-time constants are STACKED into
 leading-[B] arrays and the band step is vmapped — one fused computation, no
 Python-level band loop in the hot path. On a mesh with an 'expert' axis the
 [B, ...] state shards band-per-device-group and the final combine (Σ over
@@ -39,7 +39,9 @@ from tpu_ocean.config import OceanConfig
 from tpu_ocean.evolve import (omega_grid, spectrum_coefficients,
                               assemble_spectra, evolve_phase_accumulate)
 from tpu_ocean.spectra import h0_pair_fft, h0_pair_centered
-from tpu_ocean.fft import get_ifft2
+from tpu_ocean.fft import check_backend, get_ifft2
+from tpu_ocean.fft.reference import (ifft2_planes, ifft2_planes_half,
+                                     irfft2_half)
 from tpu_ocean import fields as field_ops
 from tpu_ocean.solver import OceanFields
 
@@ -53,9 +55,8 @@ class CascadeState(NamedTuple):
 
 
 class CascadeStateReal(NamedTuple):
-    """All-float32 twin of CascadeState (complex64 never formed) — the
-    banded analogue of solver.OceanStateReal, for runtimes whose complex
-    support is unreliable and for the timing harness (CLAUDE.md)."""
+    """All-float32 twin of CascadeState — the banded analogue of
+    solver.OceanStateReal (state and checkpoints hold f32 planes only)."""
     h0_re: jax.Array      # [B, N, N] each
     h0_im: jax.Array
     h0c_re: jax.Array
@@ -66,13 +67,23 @@ class CascadeStateReal(NamedTuple):
 
 
 def extract_live_planes_real(re: jnp.ndarray, im: jnp.ndarray, nch: int,
-                             packed: bool) -> jnp.ndarray:
-    """Real-plane twin of extract_live_planes: (re, im) [S, C_t, N, N] f32
-    transform planes → [S, C_live, N, N] live field planes."""
+                             packed: bool, last=None) -> jnp.ndarray:
+    """(re, im) [S, C_t, N, N] f32 transform planes → [S, C_live, N, N] live
+    field planes (height, disp_x, disp_z[, slope_x, slope_z]).
+
+    The SINGLE home of the packed/unpacked Re-Im plane map for band-stacked
+    transforms (mirrors OceanSolver._extract_planes; packed pairing defined
+    by evolve.packed_coefficients) — CascadeSolver and lod.LODCascadeSolver
+    both consume it, so a pairing change lands in one place. ``last`` [S, N,
+    N] is the half-spectrum route's real plane for the final packed field
+    (re/im then hold the other packed channels).
+    """
     if packed:
-        rows = [re[:, 0], im[:, 0], re[:, 1]]
+        rows = [re[:, 0], im[:, 0]]
         if nch == 5:
-            rows += [im[:, 1], re[:, 2]]
+            rows += [re[:, 1], im[:, 1], re[:, 2] if last is None else last]
+        else:
+            rows += [re[:, 1] if last is None else last]
     else:
         rows = [re[:, 0], im[:, 1], im[:, 2]]
         if nch == 5:
@@ -80,25 +91,12 @@ def extract_live_planes_real(re: jnp.ndarray, im: jnp.ndarray, nch: int,
     return jnp.stack(rows, axis=1)
 
 
-def extract_live_planes(f: jnp.ndarray, nch: int,
-                        packed: bool) -> jnp.ndarray:
-    """[S, C_transform, N, N] complex transforms → [S, C_live, N, N] live
-    field planes (height, disp_x, disp_z[, slope_x, slope_z]).
-
-    The SINGLE home of the packed/unpacked Re-Im plane map for band-stacked
-    transforms (mirrors OceanSolver._extract_fields; packed pairing defined
-    by evolve.packed_coefficients) — CascadeSolver and lod.LODCascadeSolver
-    both consume it, so a pairing change lands in one place.
-    """
-    if packed:
-        rows = [jnp.real(f[:, 0]), jnp.imag(f[:, 0]), jnp.real(f[:, 1])]
-        if nch == 5:
-            rows += [jnp.imag(f[:, 1]), jnp.real(f[:, 2])]
-    else:
-        rows = [jnp.real(f[:, 0]), jnp.imag(f[:, 1]), jnp.imag(f[:, 2])]
-        if nch == 5:
-            rows += [jnp.imag(f[:, 3]), jnp.imag(f[:, 4])]
-    return jnp.stack(rows, axis=1)
+def extract_live_planes(f: jnp.ndarray, nch: int, packed: bool,
+                        last=None) -> jnp.ndarray:
+    """Complex twin of extract_live_planes_real: [S, C_t, N, N] transforms
+    → [S, C_live, N, N] live field planes."""
+    return extract_live_planes_real(jnp.real(f), jnp.imag(f), nch, packed,
+                                    last)
 
 
 class CascadeSolver:
@@ -115,7 +113,6 @@ class CascadeSolver:
                  mesh: Optional[Mesh] = None,
                  pack_channels: bool = False,
                  real_state: bool = False,
-                 pallas_fields: bool = False,
                  half_spectrum: bool = False):
         if not cfgs:
             raise ValueError("need at least one band config")
@@ -128,17 +125,12 @@ class CascadeSolver:
                              "implemented for cascades; use foam_decay=0 "
                              "here, or a single-patch OceanSolver/"
                              "DistributedOceanSolver which support it")
-        if pallas_fields and (cfgs[0].normals_mode != "stencil"
-                              or cfgs[0].resolution % 8 != 0):
-            raise ValueError("pallas_fields requires normals_mode='stencil' "
-                             "and a resolution divisible by 8")
-        self.pallas_fields = bool(pallas_fields)
-        if real_state and fft_backend != "pallas":
-            # the all-real step rides the plane-based Pallas transform
-            # (fft.pallas_fft.ifft2_planes_auto) — same rule as
-            # OceanSolver(real_state=True)
-            raise ValueError("real_state cascades require "
-                             "fft_backend='pallas'")
+        check_backend(fft_backend)
+        if real_state and fft_backend != "reference":
+            # the all-real step rides the plane transforms of fft.reference
+            # — same rule as OceanSolver(real_state=True)
+            raise ValueError("real_state cascades run the plane transforms "
+                             "of fft.reference; use fft_backend='reference'")
         self.real_state = bool(real_state)
         n = cfgs[0].resolution
         for c in cfgs[1:]:
@@ -160,8 +152,8 @@ class CascadeSolver:
                                else max(c.length for c in cfgs))
 
         # stacked trace-time constants: device-put once, passed as step
-        # ARGUMENTS (closure-embedded numpy bloats programs past remote
-        # compiler limits at large N; closure device arrays are re-fetched)
+        # ARGUMENTS (closure-embedded N² grids would become constants
+        # compiled into the program)
         self._omega = jax.device_put(
             np.stack([np.asarray(omega_grid(c), np.float32)
                       for c in cfgs]))                             # [B, N, N]
@@ -175,20 +167,20 @@ class CascadeSolver:
         self._pch = ((2 if self._nch == 3 else 3) if pack_channels
                      else self._nch)
         # Half-spectrum (C2R) route for the last packed channel of EVERY
-        # band, batched into one ifft2_planes_half call over the band axis
-        # (bands share N by construction) — B live-field triples on B×1.5
+        # band, batched into one C2R call over the band axis (bands share N
+        # by construction) — B live-field triples on B×1.5
         # transform-equivalents. Same flag constraints as OceanSolver.
         if half_spectrum:
             if not pack_channels:
                 raise ValueError("half_spectrum rides the last PACKED "
                                  "channel's Hermitian structure — it "
                                  "requires pack_channels=True")
-            if not real_state:
-                raise ValueError("half_spectrum cascades require "
-                                 "real_state=True (the plane pipeline)")
-            if n % 16 != 0 or n < 64:
-                raise ValueError("half_spectrum needs resolution % 16 == 0 "
-                                 "and >= 64 (the N/2-length column kernels)")
+            if fft_backend != "reference":
+                raise ValueError("half_spectrum runs the C2R transform of "
+                                 "fft.reference; use fft_backend='reference'")
+            if n % 2:
+                raise ValueError(f"half_spectrum needs an even resolution "
+                                 f"(got {n})")
         self.half_spectrum = bool(half_spectrum)
         if pack_channels:
             from tpu_ocean.evolve import packed_coefficients
@@ -212,10 +204,7 @@ class CascadeSolver:
         x0, z0 = np.meshgrid(x1d, x1d, indexing="ij")
         self._x0 = jax.device_put(np.ascontiguousarray(x0))
         self._z0 = jax.device_put(np.ascontiguousarray(z0))
-        self._ifft2 = get_ifft2(fft_backend, n)
-        self._mxu_precision = (jax.lax.Precision.DEFAULT
-                               if cfgs[0].precision == "bfloat16"
-                               else jax.lax.Precision.HIGHEST)
+        self._ifft2 = get_ifft2(fft_backend, n, cfgs[0].precision)
         # lazily traced all-real velocity programs (one trace each, reused
         # per streamed frame — ADVICE r2 medium)
         self._velocity_real_jit = None
@@ -354,7 +343,6 @@ class CascadeSolver:
                                mesh=self.mesh,
                                pack_channels=self.pack_channels,
                                real_state=self.real_state,
-                               pallas_fields=self.pallas_fields,
                                half_spectrum=self.half_spectrum)
         fresh = solver.init(key)
         if (new_cfgs[0].resolution == self.cfgs[0].resolution
@@ -405,11 +393,8 @@ class CascadeSolver:
         else:
             spectra = jax.vmap(assemble_spectra)(state.h0, state.h0_conj,
                                                  phase, coeffs)
-        f = self._ifft2(spectra)
-
         # combine bands at shared UV: Σ over B (the EP all-reduce)
-        planes = extract_live_planes(f, self._nch, self.pack_channels)
-        out = self._combine_fields(planes, x0, z0)
+        out = self._combine_fields(self._complex_planes(spectra), x0, z0)
         new_state = CascadeState(h0=state.h0, h0_conj=state.h0_conj,
                                  phase=phase_state, t=t_new,
                                  step=state.step + 1)
@@ -421,9 +406,9 @@ class CascadeSolver:
         the band axis; each band carries its own dt_multiplier rate in phase
         mode).
 
-        CascadeStateReal rides a cached jitted all-real program (safe and
-        cheap to stream from a real_state CascadeSimulation, ADVICE r2); the
-        complex state keeps the diagnostic-grade jnp.fft path."""
+        CascadeStateReal rides a cached jitted all-real program (cheap to
+        stream from a real_state CascadeSimulation, ADVICE r2); the complex
+        state keeps the diagnostic-grade jnp.fft path."""
         cfg0 = self.cfgs[0]
         if cfg0.evolution_mode == "absolute":
             tt = state.t if t is None else jnp.asarray(t, jnp.float32)
@@ -476,7 +461,6 @@ class CascadeSolver:
     def _velocity_real_impl(self, held_phase: bool, state, tt, omega):
         """All-real banded ∂h/∂t (algebra: solver._velocity_real_impl),
         one plane transform over the band batch, Σ over bands."""
-        from tpu_ocean.fft.pallas_fft import ifft2_planes_auto
         cfg0 = self.cfgs[0]
         if cfg0.evolution_mode == "absolute" and not held_phase:
             phase = omega * tt
@@ -497,22 +481,31 @@ class CascadeSolver:
             # banded twin of OceanSolver's C2R velocity: every band's v̂ is
             # exactly Hermitian under the packed projection — one batched
             # half transform over the band axis, Σ over bands
-            from tpu_ocean.fft.pallas_fft import ifft2_planes_half
             mh = self.n // 2
             re = ifft2_planes_half(-(w * diff_im)[:, :mh + 1],
-                                   (w * diff_re)[:, :mh + 1], True,
-                                   self._mxu_precision)
+                                   (w * diff_re)[:, :mh + 1])
             return jnp.sum(re, axis=0)
-        re, _ = ifft2_planes_auto(-(w * diff_im), w * diff_re, True,
-                                  self._mxu_precision)
+        re, _ = ifft2_planes(-(w * diff_im), w * diff_re)
         return jnp.sum(re, axis=0)
 
+    def _complex_planes(self, spectra) -> jnp.ndarray:
+        """[S, C_t, N, N] complex band spectra → [S, C_live, N, N] live
+        planes: ONE batched transform over the band×channel batch, and with
+        half_spectrum one batched C2R transform for every band's last
+        packed channel (exactly Hermitian after symmetrize). Shared by
+        _step_impl and the LOD scheduler's refresh."""
+        last = None
+        if self.half_spectrum:
+            last = irfft2_half(spectra[:, -1, :self.n // 2 + 1])   # [S,N,N]
+            spectra = spectra[:, :-1]
+        return extract_live_planes(self._ifft2(spectra), self._nch,
+                                   self.pack_channels, last)
+
     def _real_planes(self, pair, phase, coeffs) -> jnp.ndarray:
-        """Banded all-f32 assembly + ONE plane transform over the flattened
-        band×channel batch → [S, C_live, N, N] live planes. The single home
-        of the real-state refresh math (consumed by _step_impl_real and the
+        """Banded all-f32 assembly + ONE plane transform over the band×
+        channel batch → [S, C_live, N, N] live planes. The single home of
+        the real-state refresh math (consumed by _step_impl_real and the
         LOD scheduler's refresh — lod._transform_planes)."""
-        from tpu_ocean.fft.pallas_fft import ifft2_planes_auto
         if self.pack_channels:
             from tpu_ocean.evolve import assemble_spectra_packed_real
             re, im = jax.vmap(assemble_spectra_packed_real,
@@ -523,37 +516,22 @@ class CascadeSolver:
             re, im = jax.vmap(assemble_spectra_real,
                               in_axes=((0, 0, 0, 0), 0, 0))(pair, phase,
                                                             coeffs)
-        s, ct, n = re.shape[0], re.shape[1], re.shape[-1]
-        if self.pack_channels and self.half_spectrum:
+        last = None
+        if self.half_spectrum:
             # last packed channel of every band is exactly Hermitian after
             # symmetrize: one batched C2R transform over the band axis
-            from tpu_ocean.fft.pallas_fft import ifft2_planes_half
-            mh = n // 2
-            re_f, im_f = ifft2_planes_auto(
-                re[:, :-1].reshape(s * (ct - 1), n, n),
-                im[:, :-1].reshape(s * (ct - 1), n, n), True,
-                self._mxu_precision)
-            re_f = re_f.reshape(s, ct - 1, n, n)
-            im_f = im_f.reshape(s, ct - 1, n, n)
-            last = ifft2_planes_half(re[:, -1, :mh + 1, :],
-                                     im[:, -1, :mh + 1, :], True,
-                                     self._mxu_precision)      # [S, N, N]
-            rows = [re_f[:, 0], im_f[:, 0],
-                    last if self._nch == 3 else re_f[:, 1]]
-            if self._nch == 5:
-                rows += [im_f[:, 1], last]
-            return jnp.stack(rows, axis=1)
-        re, im = ifft2_planes_auto(re.reshape(s * ct, n, n),
-                                   im.reshape(s * ct, n, n), True,
-                                   self._mxu_precision)
-        return extract_live_planes_real(re.reshape(s, ct, n, n),
-                                        im.reshape(s, ct, n, n),
-                                        self._nch, self.pack_channels)
+            mh = self.n // 2
+            last = ifft2_planes_half(re[:, -1, :mh + 1],
+                                     im[:, -1, :mh + 1])          # [S, N, N]
+            re, im = re[:, :-1], im[:, :-1]
+        re, im = ifft2_planes(re, im)
+        return extract_live_planes_real(re, im, self._nch,
+                                        self.pack_channels, last)
 
     def _combine_fields(self, planes: jnp.ndarray, x0, z0) -> OceanFields:
         """[B, C, N, N] live planes → combined OceanFields (Σ over bands,
-        then normals/foam — optionally the fused Pallas stencil kernel).
-        Shared by both state representations and the LOD scheduler."""
+        then normals/foam). Shared by both state representations and the
+        LOD scheduler."""
         cfg0 = self.cfgs[0]
         chop = self._chop[:, None, None]
         height = jnp.sum(planes[:, 0], axis=0)
@@ -565,11 +543,6 @@ class CascadeSolver:
             slope_z = jnp.sum(planes[:, 4], axis=0)
             normal = field_ops.normals_spectral(slope_x, slope_z)
             foam, jac = field_ops.whitecap_gpu(disp_x, disp_z, normal)
-        elif self.pallas_fields:
-            # cascades carry EFFECTIVE (post-choppiness) displacements, so
-            # the fused kernel's inputs need no further chop scaling
-            from tpu_ocean.solver import _pallas_fields
-            normal, foam, jac = _pallas_fields(disp_x, height, disp_z, texel)
         else:
             normal = field_ops.normals_stencil(disp_x, height, disp_z, texel)
             foam, jac = field_ops.whitecap_gpu(disp_x, disp_z, normal)
@@ -581,10 +554,8 @@ class CascadeSolver:
     def _step_impl_real(self, state: CascadeStateReal, dt: jax.Array,
                         omega=None, coeffs=None, x0=None, z0=None):
         """All-f32 twin of _step_impl: banded real-plane assembly → one
-        plane-based Pallas transform over the flattened [B·C] channel batch
-        → live-plane combine. Same math, complex64 never appears."""
-        from tpu_ocean.fft.pallas_fft import ifft2_planes_auto
-
+        plane transform over the [B, C] channel batch → live-plane combine.
+        Same math on f32 state planes."""
         cfg0 = self.cfgs[0]
         if omega is None:
             omega, coeffs = self._omega, self._coeffs

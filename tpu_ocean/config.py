@@ -86,11 +86,12 @@ class OceanConfig:
 
     # --- numerics ---
     seed: int = 0
-    # 'float32': parity-grade — MXU dots run bf16x3 (Precision.HIGHEST).
-    # 'bfloat16': fast mode — single-pass bf16 MXU dots, ~4e-3 relative field
-    #   error at 1024² (measured): fine for visualization/game workloads,
-    #   outside oracle-parity tolerance. Honored by the matmul/pallas FFT
-    #   backends; 'reference' (jnp.fft) is always full precision.
+    # 'float32': parity-grade — every dot at Precision.HIGHEST (full f32).
+    # 'bfloat16': fast mode — dot operands cast to bf16, f32 accumulation;
+    #   ~4e-3 relative field error at 1024²: fine for visualization/game
+    #   workloads, outside oracle-parity tolerance. Honored by the matmul
+    #   FFT backend (fft.matmul._dot); 'reference' (jnp.fft) is always
+    #   full precision.
     precision: str = "float32"
 
     def __post_init__(self):

@@ -1,6 +1,6 @@
 """Ensemble (data-parallel) ocean solving — component D2.
 
-The reference runs exactly one patch per GPU. On a TPU mesh, a batch of
+The reference runs exactly one patch per GPU. On a device mesh, a batch of
 independent ocean patches (an ensemble: different seeds, same physics) shards
 trivially over a 'batch' axis — the DP analogue, no communication at all.
 Combined with the 'shard' domain-decomposition axis (solver_dist), the mesh
@@ -41,8 +41,8 @@ class EnsembleOceanSolver:
         self.cfg = cfg
         self.mesh = mesh
         self.ensemble_size = ensemble_size
-        # extra member-solver switches (pack_channels, pallas_fields,
-        # real_state, ...) pass straight through — every member variant the
+        # extra member-solver switches (pack_channels, real_state,
+        # half_spectrum, ...) pass straight through — every member variant the
         # single-patch solver supports ensembles identically
         self._inner = OceanSolver(cfg, fft_backend=fft_backend, **solver_kw)
 

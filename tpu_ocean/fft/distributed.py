@@ -18,18 +18,17 @@ packed 5-channel spectrum rides a single transpose). Runs inside shard_map.
 
 from __future__ import annotations
 
-import jax
 import jax.numpy as jnp
 from jax import lax
 
 
 def _ifft1d_local(x: jnp.ndarray, backend: str,
-                  precision=jax.lax.Precision.HIGHEST) -> jnp.ndarray:
+                  precision: str = "float32") -> jnp.ndarray:
     """Unnormalized inverse DFT along the last axis with a local backend.
-    ``precision`` reaches the MXU backends only (matmul/pallas); reference
-    and stockham have no dot products to tier."""
+    ``precision`` reaches the matmul backend only; reference and stockham
+    have no dot products to tier."""
     if backend == "reference":
-        return jnp.fft.ifft(x) * x.shape[-1]
+        return jnp.fft.ifft(x, norm="forward")
     if backend == "stockham":
         from tpu_ocean.fft.stockham import fft_stockham_1d
         return fft_stockham_1d(x, inverse=True)
@@ -37,95 +36,6 @@ def _ifft1d_local(x: jnp.ndarray, backend: str,
         from tpu_ocean.fft.matmul import fft_matmul_1d
         return fft_matmul_1d(x, inverse=True, precision=precision)
     raise ValueError(f"unknown local backend {backend!r}")
-
-
-def _ifft2_x_sharded_pallas(x: jnp.ndarray, axis_name: str,
-                            overlap_chunks: int = 1,
-                            precision=jax.lax.Precision.HIGHEST) -> jnp.ndarray:
-    """Distributed 2-D IFFT built from the transposed-store Pallas passes
-    (fft.pallas_fft): because each fused pass already writes its output
-    transposed, the all_to_all swaps (split=-2, concat=-1) and no local
-    swapaxes ever materializes. Layout chain per shard:
-
-        [C, X/D, N] → rowFFT+T → [C, N, X/D] → a2a → [C, N/D, X]
-                    → colFFT+T → [C, X, N/D]   (z-sharded, final)
-    """
-    lead = x.shape[:-2]
-    m, n = x.shape[-2], x.shape[-1]
-    re = jnp.real(x).astype(jnp.float32).reshape(-1, m, n)
-    im = jnp.imag(x).astype(jnp.float32).reshape(-1, m, n)
-    re, im = ifft2_x_sharded_planes(re, im, axis_name, overlap_chunks,
-                                    precision)
-    out = re + 1j * im
-    return out.reshape(lead + out.shape[-2:])
-
-
-def ifft2_x_sharded_planes(re, im, axis_name: str, overlap_chunks: int = 1,
-                           precision=jax.lax.Precision.HIGHEST):
-    """All-real core of the X-sharded pallas transform: (re, im) f32
-    [C, X/D, N] x-sharded spectra → [C, X, N/D] z-sharded spatial planes.
-    This is the distributed real-state step's transform — complex64 never
-    appears, so the multi-chip step is timeable/checkpointable on
-    complex-hostile runtimes (VERDICT r3 #3; same plane layout the
-    single-device OceanStateReal path rides)."""
-    from tpu_ocean.fft.pallas_fft import (_fft1d_transposed,
-                                          fft1d_natural_large, MAX_PALLAS_N)
-
-    c, m, n = re.shape
-
-    if n > MAX_PALLAS_N:
-        # transposed-store kernel is hardware-illegal here; the NATURAL-
-        # store row kernel runs at any N and its output rides the einsum
-        # path's a2a (split z, concat rows), then an einsum column pass
-        from tpu_ocean.fft.matmul import ifft1d_planes_axis2
-
-        def large_chunk(re_c, im_c):
-            re_c, im_c = fft1d_natural_large(re_c, im_c, True,
-                                             precision)  # [c, X/D, N]
-            if lax.axis_size(axis_name) > 1:
-                both = jnp.stack([re_c, im_c])
-                both = lax.all_to_all(both, axis_name, split_axis=3,
-                                      concat_axis=2, tiled=True)
-                re_c, im_c = both[0], both[1]   # [c, X, N/D]
-            return re_c, im_c
-
-        if overlap_chunks > 1:
-            if c % overlap_chunks != 0:
-                raise ValueError(f"overlap_chunks={overlap_chunks} must "
-                                 f"divide the channel batch ({c})")
-            parts = [large_chunk(r, i) for r, i in zip(
-                jnp.split(re, overlap_chunks), jnp.split(im, overlap_chunks))]
-            re = jnp.concatenate([p[0] for p in parts])
-            im = jnp.concatenate([p[1] for p in parts])
-        else:
-            re, im = large_chunk(re, im)
-        return ifft1d_planes_axis2(re, im, True, precision)
-
-    def row_pass_and_transpose(re_c, im_c):
-        re_c, im_c = _fft1d_transposed(re_c, im_c, inverse=True,
-                                       precision=precision)  # [c, N, X/D]
-        if lax.axis_size(axis_name) > 1:
-            both = jnp.stack([re_c, im_c])                   # one collective
-            both = lax.all_to_all(both, axis_name, split_axis=2,
-                                  concat_axis=3, tiled=True)  # [2, c, N/D, X]
-            re_c, im_c = both[0], both[1]
-        return re_c, im_c
-
-    if overlap_chunks > 1 and c % overlap_chunks != 0:
-        raise ValueError(f"overlap_chunks={overlap_chunks} must divide the "
-                         f"channel batch ({c})")
-    if overlap_chunks > 1:
-        # issue each chunk's all_to_all before the next chunk's butterflies
-        # so XLA's scheduler can overlap ICI with MXU (same idea as the
-        # einsum path above)
-        parts = [row_pass_and_transpose(r, i) for r, i in zip(
-            jnp.split(re, overlap_chunks), jnp.split(im, overlap_chunks))]
-        re = jnp.concatenate([p[0] for p in parts])
-        im = jnp.concatenate([p[1] for p in parts])
-    else:
-        re, im = row_pass_and_transpose(re, im)
-    return _fft1d_transposed(re, im, inverse=True,
-                             precision=precision)         # [C, X, N/D]
 
 
 def _half_row_perm(d: int, b: int):
@@ -145,16 +55,14 @@ def _half_row_perm(d: int, b: int):
     return np.argsort(np.asarray(perm))
 
 
-def ifft2_x_sharded_half(re, im, axis_name: str,
-                         precision=jax.lax.Precision.HIGHEST):
+def ifft2_x_sharded_half(re, im, axis_name: str):
     """Mirror-balanced distributed half-spectrum (C2R) transform — the
-    sharded twin of pallas_fft.ifft2_planes_half (D5 × the r4 headline
-    lever).
+    sharded twin of fft.reference.ifft2_planes_half.
 
-    Input: (re, im) f32 [1, N/D, N] — the X-sharded assembled LAST packed
+    Input: (re, im) f32 [C, N/D, N] — the X-sharded assembled LAST packed
     channel (exactly Hermitian after symmetrize: S[k1,k2] =
-    conj(S[−k1,−k2])). Output: [1, N, N/D] z-sharded REAL spatial plane,
-    the same local layout ifft2_x_sharded_planes produces.
+    conj(S[−k1,−k2])). Output: [C, N, N/D] z-sharded REAL spatial plane,
+    the same local layout ifft2_x_sharded produces.
 
     Only spectral rows 0..N/2 carry information, but under X-sharding they
     live on the lower half of the devices. Rather than idling the upper
@@ -166,104 +74,58 @@ def ifft2_x_sharded_half(re, im, axis_name: str,
         device i < D/2 row-transforms its local rows [0, B/2)        (direct)
         device i ≥ D/2 row-transforms partners of its rows [1, B/2]  (derived)
 
-    Every device runs B/2 = N/(2D) rows — perfectly balanced, ZERO extra
-    collectives — and the all_to_all moves HALF the full-channel volume.
-    After the a2a the k1 axis is fully local, so a static jnp.take restores
-    natural row order (_half_row_perm), the C2R even/odd fold runs locally
-    (pallas_fft._c2r_combine — its z-flip is local too), and the column
-    pass is a length-N/2 transform whose Re/Im interleave as even/odd
-    output rows. The Nyquist spectral row (global row N/2 = local row 0 of
-    device D/2) is all_gathered (one [1,N] row — noise), transformed by a
-    one-row matmul on every device (SPMD-uniform), and z-shard-sliced into
-    the fold.
+    Every device runs B/2 = N/(2D) rows — balanced, ZERO extra collectives —
+    and the all_to_all moves HALF the full-channel volume. After the a2a the
+    k1 axis is fully local, so a static jnp.take restores natural row order
+    (_half_row_perm), and the column pass is a local C2R transform over k1
+    (jnp.fft.irfft). The Nyquist spectral row (global row N/2 = local row 0
+    of device D/2) is all_gathered (one [C,1,N] row — noise), row-transformed
+    on every device (SPMD-uniform) and z-shard-sliced onto the C2R input.
 
-    Both storage regimes, matching ifft2_x_sharded_planes: transposed-store
-    Pallas ≤ MAX_PALLAS_N, natural-store + einsum column beyond. Requires
-    D == 1 or D even, and (D == 1) or (N/(2D)) % 8 == 0 (kernel row-block
-    divisibility) — the solver validates.
+    Requires D == 1, or D even with N % (2D) == 0 — the solver validates.
 
     Reference anchor: the same Hermitian symmetry the reference's Stockham
     shader packs two channels with (Stockham.shader:53-54), here also
     halving the distributed transpose volume.
     """
-    from tpu_ocean.fft.pallas_fft import (_fft1d_transposed, _c2r_combine,
-                                          fft1d_natural_large, MAX_PALLAS_N)
-    from tpu_ocean.fft.matmul import (ifft1d_planes_lastaxis,
-                                      ifft1d_planes_axis2)
+    from tpu_ocean.fft.reference import ifft2_planes_half
     c, b, n = re.shape
     d = lax.axis_size(axis_name)
     mh = n // 2
     nloc = n // d
 
     if d == 1:
-        # degenerate mesh: exactly the single-chip route (rows 0..N/2 are
+        # degenerate mesh: exactly the single-device route (rows 0..N/2 are
         # all local)
-        from tpu_ocean.fft.pallas_fft import ifft2_planes_half
-        return ifft2_planes_half(re[:, :mh + 1], im[:, :mh + 1], True,
-                                 precision)
+        return ifft2_planes_half(re[:, :mh + 1], im[:, :mh + 1])
 
     h = b // 2
+    x = lax.complex(re, im)
     # Nyquist spectral row → every device (one row; SPMD-uniform work)
-    g_re = lax.all_gather(re[:, :1, :], axis_name)     # [D, 1, 1, N]
-    g_im = lax.all_gather(im[:, :1, :], axis_name)
-    nyq_re, nyq_im = g_re[d // 2], g_im[d // 2]        # [1, 1, N]
-    nyr, nyi = ifft1d_planes_lastaxis(nyq_re, nyq_im, True,
-                                      precision)       # [1, 1, N]
+    nyq = _all_gather_planes(x[:, :1, :], axis_name)[d // 2]   # [C, 1, N]
+    nyq = jnp.fft.ifft(nyq, norm="forward")
     z0 = lax.axis_index(axis_name) * nloc
-    nyr = lax.dynamic_slice_in_dim(nyr, z0, nloc, axis=-1)  # [1, 1, N/D]
-    nyi = lax.dynamic_slice_in_dim(nyi, z0, nloc, axis=-1)
+    nyq = lax.dynamic_slice_in_dim(nyq, z0, nloc, axis=-1)     # [C, 1, N/D]
 
-    # select this device's B/2 distinct rows (direct vs derived partner)
-    lo_re, lo_im = re[:, :h, :], im[:, :h, :]
+    # select this device's B/2 distinct rows (direct vs derived partner);
     # partners of local rows 1..B/2: conj + z-negflip, row order reversed
     # so the batch ascends in global k1
-    negflip_z = lambda x: jnp.roll(jnp.flip(x, axis=-1), 1, axis=-1)
-    up_re = jnp.flip(negflip_z(re[:, 1:h + 1, :]), axis=1)
-    up_im = -jnp.flip(negflip_z(im[:, 1:h + 1, :]), axis=1)
+    negflip_z = lambda v: jnp.roll(jnp.flip(v, axis=-1), 1, axis=-1)
+    up = jnp.conj(jnp.flip(negflip_z(x[:, 1:h + 1, :]), axis=1))
     is_lower = lax.axis_index(axis_name) < d // 2
-    sel_re = jnp.where(is_lower, lo_re, up_re)
-    sel_im = jnp.where(is_lower, lo_im, up_im)
+    sel = jnp.where(is_lower, x[:, :h, :], up)
 
-    inv = jnp.asarray(_half_row_perm(d, b))
-
-    if n > MAX_PALLAS_N:
-        # natural-store regime (the 4096² path)
-        yr, yi = fft1d_natural_large(sel_re, sel_im, True,
-                                     precision)        # [1, B/2, N]
-        both = jnp.stack([yr, yi])
-        both = lax.all_to_all(both, axis_name, split_axis=3,
-                              concat_axis=2, tiled=True)  # [2, 1, M, N/D]
-        yr, yi = both[0], both[1]
-        yr = jnp.take(yr, inv, axis=-2)
-        yi = jnp.take(yi, inv, axis=-2)
-        vr, vi = _c2r_combine(yr, yi, nyr, nyi, True, axis=-2)
-        from tpu_ocean.fft.pallas_fft import half_column_pass
-        # the shared measurement-backed column-engine dispatch (kernel
-        # column / radix-2 DIT / einsum): the split/butterfly are local,
-        # the a2a is untouched
-        xr, xi = half_column_pass(vr, vi, mh, True, precision)
-    else:
-        yr, yi = _fft1d_transposed(sel_re, sel_im, inverse=True,
-                                   precision=precision)   # [1, N, B/2]
-        both = jnp.stack([yr, yi])
-        both = lax.all_to_all(both, axis_name, split_axis=2,
-                              concat_axis=3, tiled=True)  # [2, 1, N/D, M]
-        yr, yi = both[0], both[1]
-        yr = jnp.take(yr, inv, axis=-1)
-        yi = jnp.take(yi, inv, axis=-1)
-        vr, vi = _c2r_combine(yr, yi,
-                              jnp.swapaxes(nyr, -1, -2),
-                              jnp.swapaxes(nyi, -1, -2), True, axis=-1)
-        xr, xi = _fft1d_transposed(vr, vi, inverse=True,
-                                   precision=precision)   # [1, M, N/D]
-    # x[2m] = Re v[m], x[2m+1] = Im v[m]: even/odd row interleave
-    return jnp.stack([xr, xi], axis=2).reshape(c, n, nloc)
+    y = jnp.fft.ifft(sel, norm="forward")                      # [C, B/2, N]
+    y = _transpose_x_to_z(y, axis_name)                        # [C, M, N/D]
+    y = jnp.take(y, jnp.asarray(_half_row_perm(d, b)), axis=-2)
+    y = jnp.concatenate([y, nyq], axis=-2)                     # [C, M+1, N/D]
+    return jnp.fft.irfft(y, n=n, axis=-2, norm="forward")      # [C, N, N/D]
 
 
 def ifft2_x_sharded(x: jnp.ndarray, axis_name: str,
                     backend: str = "reference",
                     overlap_chunks: int = 1,
-                    precision=jax.lax.Precision.HIGHEST) -> jnp.ndarray:
+                    precision: str = "float32") -> jnp.ndarray:
     """[..., X_local, Z_full] x-sharded spectra → [..., X_full, Z_local]
     z-sharded spatial fields. Call inside shard_map over ``axis_name``.
 
@@ -273,13 +135,10 @@ def ifft2_x_sharded(x: jnp.ndarray, axis_name: str,
 
     ``overlap_chunks > 1`` splits the leading (channel) axis into independent
     chunks so XLA's latency-hiding scheduler can run chunk i's all_to_all on
-    the ICI while chunk i+1's row butterflies occupy the MXU — the
+    the interconnect while chunk i+1's row transforms occupy the device — the
     transpose/compute overlap of SURVEY.md §5.8 without hand-rolled
     semaphores. Chunking is a no-op for correctness (tests sweep it).
     """
-    if backend == "pallas":
-        return _ifft2_x_sharded_pallas(x, axis_name, overlap_chunks,
-                                       precision)
     if overlap_chunks > 1 and (x.ndim < 3
                                or x.shape[0] % overlap_chunks != 0):
         raise ValueError(f"overlap_chunks={overlap_chunks} must divide the "
@@ -310,16 +169,30 @@ def ifft2_x_sharded(x: jnp.ndarray, axis_name: str,
 
 
 def _transpose_x_to_z(x: jnp.ndarray, axis_name: str) -> jnp.ndarray:
+    """[..., X/D, N] → [..., X, N/D] all_to_all. Complex data travels as
+    one stacked pair of f32 planes, so the collective only ever moves a
+    real dtype."""
     n_dev = lax.axis_size(axis_name)
     if n_dev == 1:
         return x
+    if jnp.iscomplexobj(x):
+        both = jnp.stack([jnp.real(x), jnp.imag(x)])
+        both = lax.all_to_all(both, axis_name, split_axis=both.ndim - 1,
+                              concat_axis=both.ndim - 2, tiled=True)
+        return lax.complex(both[0], both[1])
     return lax.all_to_all(x, axis_name, split_axis=x.ndim - 1,
                           concat_axis=x.ndim - 2, tiled=True)
 
 
+def _all_gather_planes(x: jnp.ndarray, axis_name: str) -> jnp.ndarray:
+    """lax.all_gather of a complex array as stacked f32 planes → [D, ...]."""
+    both = lax.all_gather(jnp.stack([jnp.real(x), jnp.imag(x)]), axis_name)
+    return lax.complex(both[:, 0], both[:, 1])
+
+
 def ifft2_channel_sharded(x: jnp.ndarray, axis_name: str,
                           backend: str = "reference",
-                          precision=jax.lax.Precision.HIGHEST) -> jnp.ndarray:
+                          precision: str = "float32") -> jnp.ndarray:
     """Tensor-parallel variant (D3): the CHANNEL batch is sharded instead of
     the grid. Each device runs full local 2-D IFFTs for the channels it owns
     ([C/D, N, N] resident), then an all_gather rebuilds the channel stack for

@@ -1,10 +1,9 @@
-"""DFT-as-matmul FFT backends for the MXU (TPU systolic array).
+"""DFT-as-matmul FFT backend: the transform written as dense matrix products.
 
-Gather-heavy butterfly networks map poorly onto TPU lanes; matrix units map
-perfectly. Two formulations of the unnormalized inverse DFT along an axis:
+Two formulations of the unnormalized inverse DFT along an axis:
 
 * ``direct``    — Y = X @ Fᵀ with F[k,n] = e^{+2πi kn/N}: one big matmul,
-                  O(N²) per row but at full MXU utilization. Any N.
+                  O(N²) per row. Any N.
 * ``four-step`` — Cooley-Tukey split N = N1·N2 (Bailey's algorithm; see
                   PAPERS.md transpose-free FFT literature):
                       view x as A[n2, n1]           (reshape)
@@ -15,9 +14,10 @@ perfectly. Two formulations of the unnormalized inverse DFT along an axis:
                   O(N(N1+N2)) per row — ~N/(N1+N2)× fewer FLOPs than direct
                   while still being two dense matmuls.
 
-Complex arithmetic is carried as explicit (re, im) float32 pairs: TPU dots are
-real, and the split form lets us run 4 real matmuls per complex matmul at
-controlled precision (HIGHEST ⇒ ~1e-6 relative error vs float64).
+Complex arithmetic is carried as explicit (re, im) float32 pairs: 4 real
+matmuls per complex matmul, each under the precision policy of :func:`_dot`.
+This backend is the comparison point for the library FFT (``reference``): the
+same four-step math as a hand-written transform, left to XLA's matmuls.
 """
 
 from __future__ import annotations
@@ -25,90 +25,8 @@ from __future__ import annotations
 import functools
 
 import numpy as np
-import jax
 import jax.numpy as jnp
-
-
-def _einsum_f32_precision(precision):
-    """Large-N einsum tier for 'float32': HIGHEST → HIGH.
-
-    Measured at 4096² (BASELINE.md): the step costs 36.4 ms at einsum
-    HIGHEST vs 16.5 ms at DEFAULT — the 6-pass f32 emulation dominates.
-    HIGH (native 3-pass bf16x3, ~1e-6 rel) matches the fp32-accumulation
-    error floor that bounds large-N accuracy anyway, at half the MXU cost.
-    The kernels' explicit bf16x3 sentinel (pallas_fft.B3 — Mosaic rejects
-    lax HIGH inside kernels, so they hand-roll the same decomposition) maps
-    to native HIGH here. Oracle-parity sizes (≤256²) keep true HIGHEST via
-    the kernels (~1e-7)."""
-    if precision == jax.lax.Precision.HIGHEST or precision == "bf16x3":
-        return jax.lax.Precision.HIGH
-    return precision
-
-
-def ifft1d_planes_lastaxis(re, im, inverse: bool = True,
-                           precision=jax.lax.Precision.HIGHEST):
-    """Real-plane unnormalized (inverse) DFT along the LAST axis of
-    [C, M, N] — the large-N row pass twin of ifft1d_planes_axis2 (see its
-    docstring for why large N runs on einsums)."""
-    from tpu_ocean.fft.pallas_fft import _tables_np
-
-    precision = _einsum_f32_precision(precision)
-    c, m, n = re.shape
-    n1, n2, f2r, f2i, twr, twi, f1r, f1i = _tables_np(n, inverse)
-    ar = re.reshape(c, m, n2, n1)
-    ai = im.reshape(c, m, n2, n1)
-
-    def dot(eq, a, b):
-        return jnp.einsum(eq, a, b, precision=precision,
-                          preferred_element_type=jnp.float32)
-
-    cr = dot("ks,cmst->cmkt", f2r, ar) - dot("ks,cmst->cmkt", f2i, ai)
-    ci = dot("ks,cmst->cmkt", f2r, ai) + dot("ks,cmst->cmkt", f2i, ar)
-    twr_b = twr[None, None, :, :]
-    twi_b = twi[None, None, :, :]
-    cr, ci = cr * twr_b - ci * twi_b, cr * twi_b + ci * twr_b
-    # X[c, m, k1, k2] = Σ_t F1[k1, t] · C[c, m, k2, t]
-    dr = dot("lt,cmkt->cmlk", f1r, cr) - dot("lt,cmkt->cmlk", f1i, ci)
-    di = dot("lt,cmkt->cmlk", f1r, ci) + dot("lt,cmkt->cmlk", f1i, cr)
-    return dr.reshape(c, m, n), di.reshape(c, m, n)
-
-
-def ifft1d_planes_axis2(re, im, inverse: bool = True,
-                        precision=jax.lax.Precision.HIGHEST):
-    """Real-plane unnormalized (inverse) DFT along axis -2 of [C, M, N].
-
-    The large-N column pass (N > 2048, where Mosaic's transposed store
-    needs a 128-lane row block that exceeds 16 MB VMEM — see
-    pallas_fft.ifft2_planes_auto): the row pass leaves [C, M, N]
-    non-transposed and this four-step einsum contracts axis -2 directly —
-    XLA fuses the implied transpose into the MXU contraction and tiles HBM
-    itself, so no explicit N²-sized transpose ever materializes. All arithmetic is real (4 real
-    dots per complex dot), keeping the program complex-free for the
-    real-state path. Tables are tiny (≤128², embedded constants are fine at
-    this size — the CLAUDE.md embedding hazard is about N² grids)."""
-    from tpu_ocean.fft.pallas_fft import _tables_np
-
-    precision = _einsum_f32_precision(precision)
-    c, m, n = re.shape
-    n1, n2, f2r, f2i, twr, twi, f1r, f1i = _tables_np(m, inverse)
-    ar = re.reshape(c, n2, n1, n)
-    ai = im.reshape(c, n2, n1, n)
-
-    def dot(eq, a, b):
-        return jnp.einsum(eq, a, b, precision=precision,
-                          preferred_element_type=jnp.float32)
-
-    # stage 1: C[c, k2, t, i] = Σ_s F2[k2, s] · A[c, s, t, i]
-    cr = dot("ks,csti->ckti", f2r, ar) - dot("ks,csti->ckti", f2i, ai)
-    ci = dot("ks,csti->ckti", f2r, ai) + dot("ks,csti->ckti", f2i, ar)
-    twr_b = twr[None, :, :, None]
-    twi_b = twi[None, :, :, None]
-    cr, ci = cr * twr_b - ci * twi_b, cr * twi_b + ci * twr_b
-    # stage 2: X[c, k1, k2, i] = Σ_t F1[k1, t] · C[c, k2, t, i]
-    dr = dot("lt,ckti->clki", f1r, cr) - dot("lt,ckti->clki", f1i, ci)
-    di = dot("lt,ckti->clki", f1r, ci) + dot("lt,ckti->clki", f1i, cr)
-    # transformed index = k1·n2 + k2 ⇔ [k1, k2] row-major (pallas_fft tables)
-    return dr.reshape(c, m, n), di.reshape(c, m, n)
+from jax import lax
 
 
 def _split_n(n: int):
@@ -140,17 +58,35 @@ def _four_step_tables(n: int, inverse: bool):
     return n1, n2, f1, f2, tw
 
 
+def _dot(eq: str, a, b, precision: str):
+    """One real einsum under the precision policy.
+
+    ``'float32'``: f32 operands at ``Precision.HIGHEST`` — full f32 products
+    (the default precision may run f32 dots in TF32 on tensor cores, which
+    keeps ~3 decimal digits). ``'bfloat16'``: operands cast to bf16
+    explicitly, products accumulated in f32 (``preferred_element_type``)."""
+    if precision == "bfloat16":
+        return jnp.einsum(eq, a.astype(jnp.bfloat16), b.astype(jnp.bfloat16),
+                          preferred_element_type=jnp.float32)
+    if precision != "float32":
+        raise ValueError(f"bad precision {precision!r}; "
+                         f"use 'float32' or 'bfloat16'")
+    return jnp.einsum(eq, a, b, precision=lax.Precision.HIGHEST,
+                      preferred_element_type=jnp.float32)
+
+
 def _cmul_matmul(ar, ai, br, bi, precision):
     """(ar + i·ai) @ (br + i·bi) as 4 real matmuls."""
-    rr = jnp.matmul(ar, br, precision=precision) - jnp.matmul(ai, bi, precision=precision)
-    ri = jnp.matmul(ar, bi, precision=precision) + jnp.matmul(ai, br, precision=precision)
+    eq = "...ij,jk->...ik"
+    rr = _dot(eq, ar, br, precision) - _dot(eq, ai, bi, precision)
+    ri = _dot(eq, ar, bi, precision) + _dot(eq, ai, br, precision)
     return rr, ri
 
 
 def fft_matmul_1d(x: jnp.ndarray, inverse: bool = True,
                   mode: str = "four_step",
-                  precision=jax.lax.Precision.HIGHEST) -> jnp.ndarray:
-    """Unnormalized (i)DFT along the LAST axis via MXU matmuls."""
+                  precision: str = "float32") -> jnp.ndarray:
+    """Unnormalized (i)DFT along the LAST axis via matmuls."""
     n = x.shape[-1]
     re = jnp.real(x).astype(jnp.float32)
     im = jnp.imag(x).astype(jnp.float32)
@@ -172,10 +108,9 @@ def fft_matmul_1d(x: jnp.ndarray, inverse: bool = True,
     f2r = jnp.asarray(f2.real, dtype=jnp.float32)
     f2i = jnp.asarray(f2.imag, dtype=jnp.float32)
     def lmat(mr, mi, xr, xi):
-        rr = (jnp.einsum("ks,...st->...kt", mr, xr, precision=precision)
-              - jnp.einsum("ks,...st->...kt", mi, xi, precision=precision))
-        ri = (jnp.einsum("ks,...st->...kt", mr, xi, precision=precision)
-              + jnp.einsum("ks,...st->...kt", mi, xr, precision=precision))
+        eq = "ks,...st->...kt"
+        rr = _dot(eq, mr, xr, precision) - _dot(eq, mi, xi, precision)
+        ri = _dot(eq, mr, xi, precision) + _dot(eq, mi, xr, precision)
         return rr, ri
     b_re, b_im = lmat(f2r, f2i, a_re, a_im)
 
@@ -197,8 +132,8 @@ def fft_matmul_1d(x: jnp.ndarray, inverse: bool = True,
 
 
 def ifft2_matmul(x: jnp.ndarray, mode: str = "four_step",
-                 precision=jax.lax.Precision.HIGHEST) -> jnp.ndarray:
-    """Unnormalized inverse FFT over the last two axes via MXU matmuls."""
+                 precision: str = "float32") -> jnp.ndarray:
+    """Unnormalized inverse FFT over the last two axes via matmuls."""
     x = fft_matmul_1d(x, inverse=True, mode=mode, precision=precision)
     x = jnp.swapaxes(x, -1, -2)
     x = fft_matmul_1d(x, inverse=True, mode=mode, precision=precision)
@@ -206,7 +141,7 @@ def ifft2_matmul(x: jnp.ndarray, mode: str = "four_step",
 
 
 def fft2_matmul(x: jnp.ndarray, mode: str = "four_step",
-                precision=jax.lax.Precision.HIGHEST) -> jnp.ndarray:
+                precision: str = "float32") -> jnp.ndarray:
     x = fft_matmul_1d(x, inverse=False, mode=mode, precision=precision)
     x = jnp.swapaxes(x, -1, -2)
     x = fft_matmul_1d(x, inverse=False, mode=mode, precision=precision)

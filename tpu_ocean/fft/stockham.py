@@ -17,8 +17,8 @@ combines (Stockham.shader:42-51):
 
 This is the self-sorting (no bit reversal) Stockham autosort network: after
 log2 N stages the result is the unnormalized (inverse) DFT in natural order.
-Complex data is carried as (real, imag) float pairs — TPU vector units have no
-complex type, and splitting lets XLA fuse the twiddle multiplies.
+Complex data is carried as (real, imag) float pairs — splitting lets XLA
+fuse the twiddle multiplies.
 """
 
 from __future__ import annotations

@@ -16,11 +16,9 @@ vertex shader (MistralWaterLib.cginc):
   with a finite-difference normal from two offset taps (+0.05 in x and z) and
   a smoothing blend.
 
-Here the wave bank is a first-class array-of-waves (BASELINE config 3 runs 16),
-evaluated as one fused per-grid-point computation — the whole bank stays in
-registers/VMEM, N² points stream through the VPU. A hand-tuned Pallas kernel
-(ops equivalent, tiles aligned) lives in :func:`gerstner_pallas`; the pure-jnp
-path fuses fine under XLA and is the correctness anchor.
+Here the wave bank is a first-class array-of-waves (baseline config 3 runs 16),
+evaluated as one per-grid-point computation that XLA fuses into a single
+loop over the N² points.
 """
 
 from __future__ import annotations
@@ -246,20 +244,18 @@ def sinusoid_velocity(cfg: PondConfig, x, z, t):
 
 
 class PondSolver:
-    """Pond solver over a regular grid (the TPU stand-in for the per-vertex
-    shader evaluation; BASELINE config 3: 512², 16 waves)."""
+    """Pond solver over a regular grid (the array stand-in for the
+    per-vertex shader evaluation; baseline config 3: 512², 16 waves)."""
 
     def __init__(self, cfg: PondConfig, bank: Optional[WaveBank] = None,
-                 normal_mode: str = "analytic", use_pallas: bool = False):
+                 normal_mode: str = "analytic"):
         self.cfg = cfg
         if bank is None and cfg.displacement_mode == "gerstner":
             bank = WaveBank.from_packed4(cfg)
         self.bank = bank
         self.normal_mode = normal_mode
-        self.use_pallas = use_pallas
         x, z = grids.coordinate_grid(cfg.resolution, cfg.unit_width)
-        # HOST numpy: closed-over device constants are re-fetched at jit
-        # lowering (slow/unimplemented on experimental TPU runtimes)
+        # host numpy grids, closed over by the jitted evaluators
         self._x = np.asarray(x, dtype=np.float32)
         self._z = np.asarray(z, dtype=np.float32)
         self._eval = jax.jit(self._eval_impl)
@@ -268,10 +264,6 @@ class PondSolver:
     def _eval_impl(self, t):
         mode = self.cfg.displacement_mode
         if mode == "gerstner":
-            if self.use_pallas:
-                from tpu_ocean.ops.gerstner_pallas import gerstner_pallas
-                return gerstner_pallas(self.bank, self._x, self._z, t,
-                                       self.normal_mode)
             return gerstner_eval(self.bank, self._x, self._z, t,
                                  self.normal_mode)
         if mode == "wave":

@@ -190,3 +190,43 @@ class Oracle:
         return OracleFields(height=height, disp_x=disp_x, disp_z=disp_z,
                             pos_x=pos_x, pos_z=pos_z, normal=normal,
                             foam=foam, jacobian=jacobian)
+
+
+def assert_fields_close(got, want, rtol: float, atol_scale: float,
+                        normal_atol: float = 1e-3,
+                        names=("height", "disp_x", "disp_z", "foam",
+                               "jacobian")) -> dict:
+    """allclose per field with atol proportional to each field's dynamic
+    range (atol = atol_scale · max|want|); returns {field: max|Δ|/max|want|}
+    and raises AssertionError naming the first field that misses.
+
+    foam gets a 25× wider atol: smoothstep amplifies float32 rounding near
+    the turbulence threshold (slope up to 1.5), so a handful of
+    near-threshold texels legitimately differ more. The wide band must stay
+    a NEAR-THRESHOLD phenomenon, not a blanket pass: at most 0.1% of foam
+    texels may exceed the tight tolerance. Normals (unit vectors) are held
+    to the absolute ``normal_atol``."""
+    errs = {}
+    for name in names:
+        g = np.asarray(getattr(got, name), dtype=np.float64)
+        w = np.asarray(getattr(want, name), dtype=np.float64)
+        peak = max(float(np.abs(w).max()), 1e-12)
+        errs[name] = float(np.abs(g - w).max()) / peak
+        scale = 25.0 if name == "foam" else 1.0
+        np.testing.assert_allclose(
+            g, w, rtol=rtol, atol=scale * atol_scale * peak,
+            err_msg=f"field {name} diverged")
+        if name == "foam":
+            tight = atol_scale * peak
+            frac = float(np.mean(np.abs(g - w) > tight + rtol * np.abs(w)))
+            errs["foam_frac_over_tight"] = frac
+            assert frac < 1e-3, (
+                f"{frac:.2%} of foam texels exceed the tight tolerance "
+                f"(allowed 0.1%) — the smoothstep-threshold explanation "
+                f"no longer covers the error")
+    g = np.asarray(got.normal, dtype=np.float64)
+    w = np.asarray(want.normal, dtype=np.float64)
+    errs["normal_abs"] = float(np.abs(g - w).max())
+    np.testing.assert_allclose(g, w, atol=normal_atol,
+                               err_msg="normals diverged")
+    return errs

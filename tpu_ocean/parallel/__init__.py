@@ -1,10 +1,10 @@
 """Distributed runtime: device meshes, halo rings, distributed FFT transpose.
 
 The reference is single-GPU/single-process — its only "transport" is texture
-binding between fragment passes (OceanRenderer.cs:212-261). The TPU-native
+binding between fragment passes (OceanRenderer.cs:212-261). The device-mesh
 equivalents (SURVEY.md §2.3, §5.7-5.8):
 
-  D1  backend      — jax.distributed + jax.sharding.Mesh over ICI/DCN
+  D1  backend      — jax.distributed + jax.sharding.Mesh
   D2  data par.    — ensemble batch axis, trivially sharded leading dim
   D5  domain decomp— rows sharded; 2-D FFT = local row FFTs → all_to_all
                      transpose → local column FFTs (the Ulysses analogue)

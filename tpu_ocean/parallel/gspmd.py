@@ -27,9 +27,8 @@ Reference anchor: the whole module replaces OceanRenderer.cs's single-GPU
 assumption (one device owns all 8×128 blits, OceanRenderer.cs:136) with a
 mesh contract — there is no reference equivalent to cite beyond that.
 
-Pallas-backed solvers are rejected: pallas_call carries no SPMD partitioning
-rule, which is precisely why the production path wraps kernels in shard_map
-(where the kernel only ever sees its local shard).
+Plane-state (real_state) solvers are rejected: the annotated layout contract
+is written for the complex OceanState.
 """
 
 from __future__ import annotations
@@ -38,10 +37,6 @@ import jax
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
 from tpu_ocean.solver import OceanSolver, OceanState, OceanFields
-
-#: single-device backends whose ops the SPMD partitioner knows how to shard
-GSPMD_BACKENDS = ("reference", "stockham", "matmul")
-
 
 def _state_specs(x: P) -> OceanState:
     return OceanState(h0=x, h0_conj=x, phase=x, t=P(), step=P(),
@@ -72,13 +67,9 @@ def make_gspmd_step(solver: OceanSolver, mesh: Mesh,
         raise ValueError(f"mesh needs a {shard_axis!r} axis "
                          f"(got {mesh.axis_names})")
     if getattr(solver, "real_state", False):
-        raise ValueError("real_state solvers are a timing vehicle for the "
-                         "single-chip bench; shard the complex step")
-    if solver.fft_backend not in GSPMD_BACKENDS:
-        raise ValueError(
-            f"GSPMD supports backends {GSPMD_BACKENDS} — Pallas kernels "
-            f"carry no SPMD partitioning rule (got "
-            f"{solver.fft_backend!r}); use DistributedOceanSolver")
+        raise ValueError("the GSPMD step annotates the complex OceanState; "
+                         "build the solver with real_state=False or use "
+                         "DistributedOceanSolver")
 
     x_spec = P(shard_axis, None)      # state rows split (hand-solver layout)
     z_spec = P(None, shard_axis)      # field columns split

@@ -3,9 +3,11 @@
 Axis naming convention used across the package:
 
   * ``shard`` — the domain-decomposition axis (grid rows/columns split across
-    devices; SURVEY.md D5). Laid out over ICI within a slice.
-  * ``batch`` — optional ensemble/data-parallel axis (D2), outermost so it
-    maps to DCN across slices when present.
+    devices; SURVEY.md D5).
+  * ``batch`` — optional ensemble/data-parallel axis (D2), outermost.
+
+The mesh follows the algorithm only: the cards of one host are joined all to
+all (NVLink), so no device order is closer than another.
 """
 
 from __future__ import annotations
@@ -22,9 +24,9 @@ def initialize_distributed(coordinator_address: Optional[str] = None,
                            process_id: Optional[int] = None) -> None:
     """Multi-host rendezvous (no-op on a single process).
 
-    Wraps jax.distributed.initialize; on TPU pods the arguments are inferred
-    from the environment, so bare ``initialize_distributed()`` is correct
-    there too.
+    Wraps jax.distributed.initialize. Pass the coordinator address
+    (``host:port``), the process count and this process's id explicitly:
+    nothing in a plain GPU host's environment lets JAX infer them.
     """
     if num_processes is not None and num_processes <= 1:
         return
@@ -45,8 +47,7 @@ def make_mesh(shard: Optional[int] = None, batch: int = 1,
     """Build a ('batch', 'shard') mesh over the available devices.
 
     ``shard`` defaults to all devices divided by ``batch``. The shard axis is
-    innermost so neighboring shards sit on ICI neighbors (ring collectives and
-    the FFT all_to_all ride ICI, not DCN).
+    innermost (the halo rings and the FFT all_to_all run over it).
     """
     devices = list(devices if devices is not None else jax.devices())
     if shard is None:

@@ -3,7 +3,7 @@
 Every consumer in the reference reads the solver's output textures with
 bilinear repeat-mode sampling (tex2Dlod in the pond vertex stage,
 MistralWaterCommon.cginc:21-23; the ocean material's height/displacement
-fetches, TestOcean.shader:65-66). On TPU the fields are arrays; this module
+fetches, TestOcean.shader:65-66). Here the fields are arrays; this module
 is that sampler: periodic bilinear interpolation at arbitrary world
 positions, jit/vmap/grad-safe — the API a physics or gameplay consumer uses
 to put buoys, boats, or probes on the surface.

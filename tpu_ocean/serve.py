@@ -2,8 +2,8 @@
 
 The reference's "deployment" is a Unity scene — every frame OceanRenderer.cs
 re-renders its textures and the GPU composites them to the local screen
-(OceanRenderer.cs:98-136). The production-TPU analogue has no screen: the
-chip that simulates is not the machine that renders, so the per-frame hand-off
+(OceanRenderer.cs:98-136). The production analogue has no screen: the
+accelerator that simulates is not the machine that renders, so the per-frame hand-off
 becomes a network stream. This module is that hand-off:
 
     FrameServer — owns a runtime.Simulation, steps it, and broadcasts the
@@ -443,8 +443,7 @@ class FrameServer:
 
         This is the serving-interference fix (VERDICT r4 weak #3): pulling
         full-res planes and decimating on host put the FULL d²× transfer
-        volume on the hot path — measured 243% step-rate interference at
-        1024² (bench/SERVE_TPU_r4.json). Pooling under jit makes the
+        volume on the hot path. Pooling under jit makes the
         device→host volume scale 1/d² (and ×½ again on an f16 wire); the
         reference's render loop never waits on a consumer either
         (OceanRenderer.cs:98-136)."""

@@ -1,9 +1,10 @@
-"""Field exporters — the TPU-native replacement for the reference's surface
+"""Field exporters — the headless replacement for the reference's surface
 shaders (L4, SURVEY.md §2.2).
 
 The reference consumes solver outputs in TestOcean.shader / the pond
-über-shader to draw pixels. On TPU the prognostic fields themselves are the
-product; this module dumps them for inspection: PNG heatmaps (PIL), .npy
+über-shader to draw pixels. Here the prognostic fields themselves are the
+product; this module dumps them for inspection: PNG heatmaps (a small
+zlib/struct PNG encoder and a numpy colour map — no imaging packages), .npy
 planes, and a simple shaded render that reproduces the ocean demo material's
 look (wrapped diffuse + Blinn-Phong + foam, TestOcean.shader:81-96) on the CPU
 so visual parity with the reference demo can be eyeballed.
@@ -12,10 +13,25 @@ so visual parity with the reference demo can be eyeballed.
 from __future__ import annotations
 
 import os
+import struct
+import zlib
 from typing import Optional
 
 import numpy as np
 import jax
+
+#: viridis anchors (matplotlib's map sampled at 17 evenly spaced points);
+#: heatmaps interpolate linearly between them
+_VIRIDIS = np.asarray([
+    [0.2670, 0.0049, 0.3294], [0.2823, 0.0950, 0.4173],
+    [0.2788, 0.1755, 0.4834], [0.2590, 0.2515, 0.5247],
+    [0.2297, 0.3224, 0.5457], [0.1994, 0.3876, 0.5546],
+    [0.1727, 0.4488, 0.5579], [0.1490, 0.5081, 0.5573],
+    [0.1276, 0.5669, 0.5506], [0.1206, 0.6258, 0.5335],
+    [0.1579, 0.6838, 0.5017], [0.2461, 0.7389, 0.4520],
+    [0.3692, 0.7889, 0.3829], [0.5160, 0.8312, 0.2943],
+    [0.6785, 0.8637, 0.1895], [0.8456, 0.8873, 0.0997],
+    [0.9932, 0.9062, 0.1439]])
 
 
 def _to_host(x) -> np.ndarray:
@@ -29,15 +45,49 @@ def _normalize01(a: np.ndarray) -> np.ndarray:
     return (a - lo) / (hi - lo)
 
 
-def save_field_png(path: str, field, cmap: str = "viridis") -> str:
-    """One scalar field [N, N] → PNG heatmap."""
-    from PIL import Image
-    import matplotlib
-    a = _normalize01(_to_host(field).astype(np.float64))
-    rgba = (matplotlib.colormaps[cmap](a) * 255).astype(np.uint8)
+def write_png(path: str, rgb: np.ndarray) -> str:
+    """uint8 [H, W, 3] (or [H, W]) → 8-bit RGB (or grey) PNG, unfiltered
+    scanlines in one zlib stream."""
+    img = np.ascontiguousarray(rgb, dtype=np.uint8)
+    if img.ndim == 2:
+        color_type, channels = 0, 1
+    elif img.ndim == 3 and img.shape[2] == 3:
+        color_type, channels = 2, 3
+    else:
+        raise ValueError(f"write_png wants [H, W] or [H, W, 3] uint8, got "
+                         f"shape {img.shape}")
+    h, w = img.shape[:2]
+    rows = img.reshape(h, w * channels)
+    raw = np.concatenate([np.zeros((h, 1), np.uint8), rows], axis=1)
+
+    def chunk(tag: bytes, data: bytes) -> bytes:
+        return (struct.pack(">I", len(data)) + tag + data
+                + struct.pack(">I", zlib.crc32(tag + data) & 0xFFFFFFFF))
+
+    png = (b"\x89PNG\r\n\x1a\n"
+           + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, color_type,
+                                        0, 0, 0))
+           + chunk(b"IDAT", zlib.compress(raw.tobytes(), 6))
+           + chunk(b"IEND", b""))
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
-    Image.fromarray(rgba).save(path)
+    with open(path, "wb") as f:
+        f.write(png)
     return path
+
+
+def colormap(a01: np.ndarray) -> np.ndarray:
+    """[...] values in [0, 1] → uint8 [..., 3] viridis RGB."""
+    x = np.clip(a01, 0.0, 1.0) * (len(_VIRIDIS) - 1)
+    i = np.minimum(x.astype(np.int64), len(_VIRIDIS) - 2)
+    f = (x - i)[..., None]
+    rgb = _VIRIDIS[i] * (1.0 - f) + _VIRIDIS[i + 1] * f
+    return (rgb * 255.0 + 0.5).astype(np.uint8)
+
+
+def save_field_png(path: str, field) -> str:
+    """One scalar field [N, N] → PNG heatmap (viridis)."""
+    a = _normalize01(_to_host(field).astype(np.float64))
+    return write_png(path, colormap(a))
 
 
 def save_fields(directory: str, fields, prefix: str = "ocean",
@@ -82,11 +132,7 @@ def shade_ocean(fields, light_dir=(0.5, 0.5, -0.7),
 
 
 def save_render_png(path: str, fields, **kw) -> str:
-    from PIL import Image
-    rgb = (shade_ocean(fields, **kw) * 255).astype(np.uint8)
-    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
-    Image.fromarray(rgb).save(path)
-    return path
+    return write_png(path, (shade_ocean(fields, **kw) * 255).astype(np.uint8))
 
 
 def procedural_sky_equirect(height: int = 32, width: int = 64,
@@ -264,11 +310,7 @@ def shade_pond(fields, water_color=(0.12, 0.35, 0.38),
 
 
 def save_pond_render_png(path: str, fields, **kw) -> str:
-    from PIL import Image
-    rgb = (shade_pond(fields, **kw) * 255).astype(np.uint8)
-    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
-    Image.fromarray(rgb).save(path)
-    return path
+    return write_png(path, (shade_pond(fields, **kw) * 255).astype(np.uint8))
 
 
 def mesh_arrays(fields, cfg, display_scale: bool = False,
